@@ -1,0 +1,136 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by nvcc for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded with ctypes.  Nothing of PyTorch
+is included in the sources, so a build takes seconds.  The library lands
+in ``<repo>/build/`` under a name keyed by a hash of the sources and the
+flags, built at first use; importing this module needs no nvcc.
+
+Every C entry launches on the stream it is given (the caller passes
+``torch.cuda.current_stream()``), allocates nothing, does not
+synchronise, and returns ``cudaGetLastError()``; ``check`` raises when
+that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry -> argtypes (pointers and the stream as void*, sizes as int)
+_SIGNATURES = {
+    # x, y, y_index, dist, idx, B, N, M, stream
+    "genpc_nn": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # pts, min_d, out, B, N, k, start, stream
+    "genpc_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x1, x2, price, bid, best, better, B, n, m, stream
+    "genpc_emd_bid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot build")
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgenpc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into build/ unless the keyed library exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
+    # build into a temp name, then rename: concurrent builds never see
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr.strip())
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.genpc_error_string.argtypes = [ctypes.c_int]
+            handle.genpc_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().genpc_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous fp32/int32 tensors on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous input")
+        if t.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"{name}: dtype {t.dtype} (fp32/int32 only)")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")

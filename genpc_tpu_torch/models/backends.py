@@ -1,0 +1,49 @@
+"""Backend registry for the three generative stages (counterpart of
+genpc_tpu/models/backends.py).
+
+Only the model-free synthetic backends are ported.  The neural backends
+(ControlNet/T2I-Adapter, FLUX, Qwen-Image-Edit, RMBG, InstantMesh,
+TRELLIS, SF3D) are ROADMAP queue 1, item 8; asking for one raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from genpc_tpu_torch.models.synthetic import (
+    SyntheticDepth2Image, SyntheticImage23D, SyntheticRembg)
+
+_NEURAL = {
+    "depth2image": ("controlnet", "qwen", "flux", "adapter"),
+    "rembg": ("RMBG", "rmbg"),
+    "image23d": ("instantmesh", "trellis", "trellis_2", "sf3d"),
+}
+
+
+def _not_ported(stage: str, name: str):
+    if name in _NEURAL[stage]:
+        return NotImplementedError(
+            f"{stage} backend {name!r} is not ported to genpc_tpu_torch yet "
+            f"(ROADMAP queue 1, item 8: neural backends); use 'synthetic'")
+    return ValueError(f"unknown {stage} backend {name!r}")
+
+
+def get_depth2image(name: str, cfg: Any = None):
+    """Depth-conditioned image generator: .generate(depth, category, size)."""
+    if name == "synthetic":
+        return SyntheticDepth2Image(cfg)
+    raise _not_ported("depth2image", name)
+
+
+def get_rembg(name: str, cfg: Any = None):
+    """Background removal: callable(image [H,W,3]) -> RGBA [H,W,4]."""
+    if name in ("synthetic", "rembg"):
+        return SyntheticRembg(cfg)
+    raise _not_ported("rembg", name)
+
+
+def get_image23d(name: str, cfg: Any = None):
+    """Image-to-3D: callable(flag, image_nobg, partial_xyz=..., ...)."""
+    if name == "synthetic":
+        return SyntheticImage23D(cfg)
+    raise _not_ported("image23d", name)

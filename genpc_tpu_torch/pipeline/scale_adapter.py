@@ -1,0 +1,65 @@
+"""Stage 2 — Scale Adapter: background removal, point colouring,
+image-to-3D (counterpart of genpc_tpu/pipeline/scale_adapter.py).
+
+Only the synthetic image-to-3D backend is ported, through the batched
+``scale_adapter_batch`` (its symmetry planning runs for all objects in
+two nearest-neighbour launches).  Workspace saving is not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from genpc_tpu_torch.models.backends import get_image23d, get_rembg
+from genpc_tpu_torch.models.synthetic import SyntheticImage23D
+from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
+
+
+class ScaleAdapter:
+    def __init__(self, cfg, rembg=None, image23d=None):
+        self.cfg = cfg
+        # backends the caller passes in stay the caller's to free
+        self.owns_image23d = image23d is None
+        self.rembg = rembg or get_rembg(cfg.rembg_model, cfg)
+        self.image23d = image23d or get_image23d(cfg.generative_model, cfg)
+
+    def remove_bg(self, art: ObjectArtifacts) -> ObjectArtifacts:
+        art.image_nobg = np.asarray(self.rembg(art.image))
+        return art
+
+    def color_point(self, art: ObjectArtifacts) -> ObjectArtifacts:
+        """Colour the partial cloud from the generated image at its UVs
+        (reference: ScaleAdapter.py:46-68)."""
+        img = np.asarray(art.image, np.float32)
+        res = img.shape[0]
+        # undo the paint-time vertical flip before sampling
+        img = img[::-1, :, :]
+        pix = (np.asarray(art.point_uv) * res).astype(np.int64)
+        rows = np.clip(pix[:, 1], 0, res - 1)
+        cols = np.clip(pix[:, 0], 0, res - 1)
+        art.color_xyz = np.asarray(art.xyz, np.float32)
+        art.color_rgb = img[rows, cols, :3].astype(np.float32)
+        return art
+
+    def scale_adapter_batch(self, arts) -> None:
+        """Stage 2 for a batch: per-object matting/colouring (host) +
+        batched symmetry planning."""
+        if self.cfg.get("save", False):
+            raise NotImplementedError(
+                "workspace saving is not ported to genpc_tpu_torch yet "
+                "(ROADMAP queue 1); run with save=False")
+        if not isinstance(self.image23d, SyntheticImage23D):
+            raise NotImplementedError(
+                "only the synthetic image-to-3D backend is ported "
+                "(ROADMAP queue 1, item 8)")
+        for art in arts:
+            self.remove_bg(art)
+            self.color_point(art)
+        plans = SyntheticImage23D.plan_symmetry_batched(
+            [a.color_xyz for a in arts], device=self.image23d.device)
+        for art, plan in zip(arts, plans):
+            art.complete_xyz, art.complete_rgb = \
+                self.image23d.complete_with_plan(
+                    art.flag, art.color_xyz, art.color_rgb,
+                    art.viewpoint, plan)
+            art.complete_aligned = True
