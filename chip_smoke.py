@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (genpc_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, device count;
   2. build: compiles the CUDA kernels from genpc_tpu_torch/csrc into
-     build/ and prints the build time;
+     build/ (one nvcc per source, in parallel) and prints the build time;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with both times (CUDA events, warm-up
-     then the median of 3);
-  4. the main path: ``run_batched`` over 13 seeded synthetic objects at
-     the Redwood protocol sizes (aligned-completion fast path), a warm-up
-     and a timed pass, with the launch count of every kernel on the path.
+     shapes the main paths give it: parity, the kernel's, the plain
+     version's and (where one exists) a library call's times (CUDA
+     events, warm-up then the median of 3), and the least time the card
+     could take for the same work (bytes at 3.35 TB/s or fp32 operations
+     at 67 TFLOP/s, whichever is larger: the H100 SXM data sheet);
+  4. the main paths over 13 seeded synthetic objects at the Redwood
+     protocol sizes: first a two-object check of each path, card against
+     host, on two data seeds; then the aligned-completion fast path and the registration path
+     (pose optimisation through K4/K5, ICP sweeps), each a warm-up and a
+     timed pass with the launch count of every kernel, the counts set to 0
+     just before the timed pass and read just after.  The registration
+     path's two passes must give bit-identical per-object CD.
+     --profile adds one torch.profiler pass of the registration path and
+     prints device time by kernel (kernel rows only).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no
@@ -24,6 +33,7 @@ directory that does not hold the genpc_tpu_torch package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -32,6 +42,8 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -53,6 +65,19 @@ def cuda_ms(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time for the work: bytes moved once at the memory rate or
+    fp32 operations at the peak rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def fail(msg: str) -> None:
@@ -91,8 +116,14 @@ def check_k1(dev, small=(2, 300, 500), big=(13, 16384, 16384), seed=0):
         fail("K1 big: below the 99.9% / exact-distance contract")
     ms = cuda_ms(lambda: _nn(x, y))
     plain_ms = cuda_ms(lambda: _nn_plain(x, y))
-    log(f"K1 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    library_ms = cuda_ms(lambda: torch.cdist(x, y).min(dim=2))
+    # 3 sub + 3 mul + 2 add per pair; x, y read, dist and idx written once
+    bd = bound(nbytes(x, y, dk, ik), 8.0 * b * n * m)
+    log(f"K1 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cdist+min "
+        f"{library_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bd}
 
 
 def check_k2(dev, small=(2, 1000, 256), big=(13, 163840, 16384), seed=1):
@@ -114,7 +145,8 @@ def check_k2(dev, small=(2, 1000, 256), big=(13, 163840, 16384), seed=1):
     b, n, k = big
     p = torch.tensor(r.uniform(-0.5, 0.5, (b, n, 3)), dtype=torch.float32,
                      device=dev)
-    ik = fps_batched(p, k).cpu().numpy()
+    out = fps_batched(p, k)
+    ik = out.cpu().numpy()
     ip = fps_batched_plain(p, k).cpu().numpy()
     frac = min(len(set(ik[i].tolist()) & set(ip[i].tolist())) / k
                for i in range(b))
@@ -124,8 +156,12 @@ def check_k2(dev, small=(2, 1000, 256), big=(13, 163840, 16384), seed=1):
         fail("K2 big: below the 99.9% selected-set contract")
     ms = cuda_ms(lambda: fps_batched(p, k))
     plain_ms = cuda_ms(lambda: fps_batched_plain(p, k))
-    log(f"K2 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # each of the k-1 picks updates every point's distance (8 flops)
+    bd = bound(nbytes(p, out), 8.0 * b * n * (k - 1))
+    log(f"K2 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); no library call")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bd}
 
 
 def check_k3(dev, big=(13, 16384, 16384), seed=2):
@@ -151,22 +187,131 @@ def check_k3(dev, big=(13, 16384, 16384), seed=2):
         fail("K3: below the 99.5% / 2e-4 contract")
     ms = cuda_ms(lambda: bid(x1, x2, pr))
     plain_ms = cuda_ms(lambda: bid_plain(x1, x2, pr))
-    log(f"K3 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # distance (8) + sqrt + 2 sub per pair
+    bd = bound(nbytes(x1, x2, pr, bk, bestk, betk), 11.0 * b * n * m)
+    log(f"K3 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); no library call")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bd}
+
+
+def _pose_tables(dev, res, n_pts, seed=3):
+    """Slot tables of the pose path: 13 synthetic objects' completions
+    (voxel 0.02, resampled to n_pts) under the 4 start rotations about y,
+    R = 52 renders, built by the port's _build_table."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.geometry.transforms import rotation_6d_to_matrix
+    from genpc_tpu_torch.geometry.transforms import rot6d_from_axis_angle
+    from genpc_tpu_torch.io.synthetic_data import make_object
+    from genpc_tpu_torch.ops.voxel import voxel_down_sample
+    from genpc_tpu_torch.pipeline.registration import resample_fixed
+    from genpc_tpu_torch.render.point_renderer import (
+        RenderCamera, _build_table, _project_attrs)
+    clouds, cols = [], []
+    for i in range(13):
+        _, _, gt, gt_rgb = make_object(seed + i, n_gt=40000)
+        v, vc = voxel_down_sample(gt, 0.02, gt_rgb)
+        v, vc = resample_fixed(v, n_pts, vc)
+        clouds.append(v)
+        cols.append(vc)
+    pts = torch.tensor(np.stack(clouds), dtype=torch.float32, device=dev)
+    col = torch.tensor(np.stack(cols), dtype=torch.float32, device=dev)
+    R = rotation_6d_to_matrix(torch.stack(
+        [rot6d_from_axis_angle("y", 90.0 * s, dev) for s in range(4)]))
+    pts = torch.einsum("bnj,kij->bkni", pts, R).reshape(52, n_pts, 3)
+    col = col[:, None].expand(13, 4, n_pts, 3).reshape(52, n_pts, 3)
+    attrs = _project_attrs(pts, 0.02 * (2048 / n_pts) ** 0.5,
+                           RenderCamera.default(res), 2)
+    table, keep, _ = _build_table(*attrs[:4], col, attrs[4], res, 2, 6)
+    return table, int(keep.sum())
+
+
+def check_k4_k5(dev, shapes=((224, 2048), (112, 512)), seed=4):
+    """K4 (splat forward) and K5 (splat backward) against their plain
+    versions at the pose path's shapes (R = 52, S = 6, f = 2, gamma 1e-2):
+    bit-equal, and bitwise repeatable."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.render.splat_kernel import (
+        assemble, assemble_bwd, assemble_bwd_plain, assemble_plain)
+    out = {}
+    g = np.random.default_rng(seed)
+    for res, n_pts in shapes:
+        table, kept = _pose_tables(dev, res, n_pts)
+        r = table.shape[0]
+        cots = (torch.tensor(g.normal(size=(r, 3, res, res)),
+                             dtype=torch.float32, device=dev),
+                torch.tensor(g.normal(size=(r, res, res)),
+                             dtype=torch.float32, device=dev))
+        (acc, wacc), dmax = assemble(table, res, 2, 1e-2)
+        (acc_p, wacc_p), dmax_p = assemble_plain(table, res, 2, 1e-2)
+        (acc2, wacc2), dmax2 = assemble(table, res, 2, 1e-2)
+        d_t = assemble_bwd(table, cots, dmax, res, 2, 1e-2)
+        d_p = assemble_bwd_plain(table, cots, dmax, res, 2, 1e-2)
+        d_t2 = assemble_bwd(table, cots, dmax, res, 2, 1e-2)
+        torch.cuda.synchronize()
+        err4 = max((acc - acc_p).abs().max().item(),
+                   (wacc - wacc_p).abs().max().item(),
+                   (dmax - dmax_p).abs().max().item())
+        err5 = (d_t - d_p).abs().max().item()
+        rep4 = (torch.equal(acc, acc2) and torch.equal(wacc, wacc2)
+                and torch.equal(dmax, dmax2))
+        rep5 = torch.equal(d_t, d_t2)
+        log(f"K4/K5 res {res}, R {r}, {kept} of {r * n_pts} points in the "
+            f"table: K4 max err vs plain {err4:.3e}, K5 {err5:.3e}; "
+            f"bitwise repeat K4 {rep4}, K5 {rep5}")
+        # the twins sum in the kernels' order with the same roundings:
+        # the contract is bit-equality
+        if err4 != 0.0 or err5 != 0.0 or not (rep4 and rep5):
+            fail(f"K4/K5 res {res}: not bit-equal to the plain versions or "
+                 f"not repeatable")
+        ms4 = cuda_ms(lambda: assemble(table, res, 2, 1e-2))
+        plain4 = cuda_ms(lambda: assemble_plain(table, res, 2, 1e-2))
+        ms5 = cuda_ms(lambda: assemble_bwd(table, cots, dmax, res, 2, 1e-2))
+        plain5 = cuda_ms(lambda: assemble_bwd_plain(table, cots, dmax, res,
+                                                    2, 1e-2))
+        # operations: every present entry is visited from its 25 window
+        # pixels, ~30 flops per visit (both directions).  Bytes: what this
+        # table needs, the sigma2 plane of every slot (it marks presence),
+        # the other 6 channels of the present entries only, each once;
+        # the outputs (K5: the dense gradient table) written once, and K5
+        # reads the padded cotangent buffer [R,5,res+2f,res+2f] once
+        flops = 30.0 * 25 * kept
+        needed = nbytes(table) // 7 + kept * 6 * 4
+        b4 = bound(needed + nbytes(acc, wacc, dmax), flops)
+        b5 = bound(needed + nbytes(d_t) + r * 5 * (res + 4) ** 2 * 4, flops)
+        log(f"K4 time res {res}: kernel {ms4:.3f} ms, plain {plain4:.3f} "
+            f"ms, bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}); K5: "
+            f"kernel {ms5:.3f} ms, plain {plain5:.3f} ms, bound "
+            f"{b5['bound_ms']:.4f} ms ({b5['bound_by']}); no library call")
+        out[res] = ({"max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
+                     "library_ms": None, **b4},
+                    {"max_abs_err": err5, "ms": ms5, "plain_ms": plain5,
+                     "library_ms": None, **b5})
+        del table, cots, d_t, d_p, d_t2
+        torch.cuda.empty_cache()
+    main = out[shapes[0][0]]
+    return {"splat_fwd": main[0], "splat_bwd": main[1]}
 
 
 KERNELS = [
     # name, wrapper (module, attribute), source, replaced Pallas kernel
     ("chamfer_nn", ("genpc_tpu_torch.ops.chamfer", "_nn"),
-     "genpc_tpu_torch/csrc/chamfer_nn.cu", "genpc_tpu/ops/chamfer.py:47",
-     check_k1),
+     "genpc_tpu_torch/csrc/chamfer_nn.cu", "genpc_tpu/ops/chamfer.py:47"),
     ("fps", ("genpc_tpu_torch.ops.fps_kernel", "fps_batched"),
-     "genpc_tpu_torch/csrc/fps.cu", "genpc_tpu/ops/fps_kernel.py:44",
-     check_k2),
+     "genpc_tpu_torch/csrc/fps.cu", "genpc_tpu/ops/fps_kernel.py:44"),
     ("emd_bid", ("genpc_tpu_torch.ops.emd_kernel", "bid"),
-     "genpc_tpu_torch/csrc/emd_bid.cu", "genpc_tpu/ops/emd_kernel.py:48",
-     check_k3),
+     "genpc_tpu_torch/csrc/emd_bid.cu", "genpc_tpu/ops/emd_kernel.py:48"),
+    ("splat_fwd", ("genpc_tpu_torch.render.splat_kernel", "assemble"),
+     "genpc_tpu_torch/csrc/splat.cu", "genpc_tpu/render/splat_kernel.py:77"),
+    ("splat_bwd", ("genpc_tpu_torch.render.splat_kernel", "assemble_bwd"),
+     "genpc_tpu_torch/csrc/splat.cu",
+     "genpc_tpu/render/splat_kernel.py:201"),
 ]
+#: the kernels each main path must launch
+PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
+                "registration": tuple(k[0] for k in KERNELS)}
 
 
 def wrapper(spec):
@@ -177,7 +322,10 @@ def wrapper(spec):
 
 # ------------------------------------------------------------ phase 4 ---
 
-#: configs/redwood.yaml and the Redwood protocol, as keyword overrides
+#: configs/redwood.yaml and the Redwood protocol, as keyword overrides;
+#: the pose and ICP settings are the config defaults (4 starts x 200 Adam
+#: steps at 224², 2,048 points; ICP on 2,048 points, 11 coarse scales, a
+#: 10³ fine grid, the anisotropic final refine)
 REDWOOD = dict(
     save=False, trust_aligned_completion=True, input_points=65536,
     view_num=1024, downsample_num=10000, res=256, cam_res=256,
@@ -192,50 +340,106 @@ TINY = dict(
     save=False, trust_aligned_completion=True, view_num=16,
     downsample_num=256, res=64, cam_res=64, generate_res=64,
     input_points=4096, inpaint_iters=10, glb_sample_points=512,
-    fused_points=256, metric_points=256, emd_eps=0.005)
+    fused_points=256, metric_points=256, emd_eps=0.005,
+    pose_complete_points=64, icp_points=64, pose_iters=3,
+    pose_render_size=32, fine_scale_steps=2)
+
+#: the registration steps whose card result is replayed on the host
+REG_STEPS = ("batched_pose_optim", "batched_coarse_sweep",
+             "batched_fine_search", "batched_similarity_refine")
+#: card-vs-host tolerance of each replayed step's transforms: the same
+#: algorithm on the same inputs, different roundings (expf vs the host's
+#: exp, cuBLAS vs host BLAS sums, cuSOLVER vs LAPACK SVD)
+REG_STEP_TOL = 1e-4
 
 
-def small_input_check(tmp: str) -> None:
-    """The whole path at a tiny size on the card and on the host (plain
-    versions): per-object CD within 1e-5; EMD within emd_eps absolute.
-    The bid kernel uses the direct distance form and the plain version
-    the expansion, so near-tied bids can flip and send the auction down
-    another path; both ends are eps-optimal assignments, whose mean
-    distances differ by at most about eps."""
+def _to(x, dev):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(v, dev) for v in x)
+    return x.to(dev) if hasattr(x, "to") and hasattr(x, "device") else x
+
+
+def _np(x):
+    import numpy as np
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+def small_input_check(tmp: str, seed: int) -> None:
+    """Both paths at a tiny size, card against host (plain versions).
+
+    Aligned path: per-object CD within 1e-5 (the NN is bit-equal on
+    both); EMD within emd_eps absolute (the bid kernel uses the direct
+    distance form and the plain version the expansion, so a near-tied
+    bid can send the auction down another path; both ends are
+    eps-optimal).  Registration path: every registration step the card
+    ran is replayed on the host from the same inputs, and its transforms
+    must agree within REG_STEP_TOL.  Its end-to-end CD/EMD gap is printed
+    and held to no limit: between steps the host prep voxel-bins the
+    moved clouds, so a rounding-level change of a transform can move a
+    point across a voxel edge and resample another subset (ROADMAP
+    queue 3), which moves CD by percents on a two-object input."""
     from genpc_tpu_torch.config import load_config
     from genpc_tpu_torch.io.synthetic_data import write_dataset
-    from genpc_tpu_torch.parallel.batched_runner import run_batched
+    from genpc_tpu_torch.parallel import batched_runner
     flags = ["01184", "05117"]
-    root = os.path.join(tmp, "tiny")
-    write_dataset(root, flags, seed=1, n_gt=8192)
-    got = run_batched(load_config(device="cuda", **TINY), flags, root)
-    ref = run_batched(load_config(device="cpu", **TINY), flags, root)
-    for f in flags:
-        log(f"small input {f}: cuda CD {got[f]['cd']:.7f} EMD "
-            f"{got[f]['emd']:.7f} | cpu CD {ref[f]['cd']:.7f} EMD "
-            f"{ref[f]['emd']:.7f}")
-        if abs(got[f]["cd"] - ref[f]["cd"]) > 1e-5 or \
-                abs(got[f]["emd"] - ref[f]["emd"]) > TINY["emd_eps"]:
-            fail(f"small input {f}: card and host disagree")
+    root = os.path.join(tmp, f"tiny_{seed}")
+    write_dataset(root, flags, seed=seed, n_gt=8192)
+    for path, aligned in (("aligned", True), ("registration", False)):
+        kw = dict(TINY, trust_aligned_completion=aligned)
+        calls = {}
+        orig = {n: getattr(batched_runner, n) for n in REG_STEPS}
+
+        def recorder(name):
+            def call(*a, **k):
+                out = orig[name](*a, **k)
+                calls[name] = (a, k, out)
+                return out
+            return call
+
+        for n in REG_STEPS:
+            setattr(batched_runner, n, recorder(n))
+        try:
+            got = batched_runner.run_batched(
+                load_config(device="cuda", **kw), flags, root)
+        finally:
+            for n in REG_STEPS:
+                setattr(batched_runner, n, orig[n])
+        ref = batched_runner.run_batched(load_config(device="cpu", **kw),
+                                         flags, root)
+        for name, (a, k, out) in calls.items():
+            host = orig[name](*_to(a, "cpu"), **k)
+            outs = out if isinstance(out, tuple) else (out,)
+            hosts = host if isinstance(host, tuple) else (host,)
+            err = max(float(abs(_np(o) - _np(h)).max())
+                      for o, h in zip(outs, hosts))
+            log(f"small input seed {seed} {path} {name}: card vs host on the "
+                f"same inputs, max |dT| {err:.3e}")
+            if err > REG_STEP_TOL:
+                fail(f"small input {name}: card and host disagree")
+        for f in flags:
+            dcd = abs(got[f]["cd"] - ref[f]["cd"])
+            demd = abs(got[f]["emd"] - ref[f]["emd"])
+            log(f"small input seed {seed} {path} {f}: cuda CD "
+                f"{got[f]['cd']:.8f} EMD {got[f]['emd']:.7f} | cpu CD "
+                f"{ref[f]['cd']:.8f} EMD {ref[f]['emd']:.7f} | |dCD| "
+                f"{dcd:.3e} ({dcd / ref[f]['cd']:.4f} rel), |dEMD| "
+                f"{demd:.3e} ({demd / ref[f]['emd']:.4f} rel)")
+            if not all(map(math.isfinite, (got[f]["cd"], got[f]["emd"]))):
+                fail(f"small input {path} {f}: non-finite CD/EMD")
+            if aligned and not (dcd <= 1e-5 and demd <= TINY["emd_eps"]):
+                fail(f"small input {path} {f}: card and host disagree")
 
 
-def main_path(tmp: str, counters) -> dict:
-    """run_batched over 13 synthetic objects at the Redwood sizes: a
-    warm-up pass, then the timed pass whose kernel launches are counted."""
+def drive(path: str, root: str, flags, counters) -> dict:
+    """run_batched of one path over the synthetic objects: a warm-up
+    pass, then the timed pass whose kernel launches are counted."""
     import numpy as np
     import torch
-    from genpc_tpu_torch.categories import REDWOOD_FLAGS
     from genpc_tpu_torch.config import load_config
-    from genpc_tpu_torch.io.synthetic_data import write_dataset
     from genpc_tpu_torch.ops.chamfer import _nn_plain
     from genpc_tpu_torch.parallel import batched_runner
-    flags = list(REDWOOD_FLAGS)
-    root = os.path.join(tmp, "redwood_synthetic")
-    t0 = time.time()
-    write_dataset(root, flags, seed=0)
-    log(f"data: {len(flags)} synthetic objects written in "
-        f"{time.time() - t0:.1f} s")
-    cfg = load_config(device="cuda", **REDWOOD)
+    cfg = load_config(device="cuda", **dict(
+        REDWOOD, trust_aligned_completion=(path == "aligned")))
 
     # record the metric's FPS samples to recompute CD independently
     seen = {}
@@ -248,52 +452,78 @@ def main_path(tmp: str, counters) -> dict:
     batched_runner.batched_metric_sampled = recording_metric
     try:
         t0 = time.time()
-        batched_runner.run_batched(cfg, flags, root)
-        log(f"warm-up pass: {time.time() - t0:.2f} s")
-        for fn in counters:
+        warm = batched_runner.run_batched(cfg, flags, root)
+        log(f"{path}: warm-up pass {time.time() - t0:.2f} s")
+        for fn in counters.values():
             fn.launches = 0
         timings = {}
         t0 = time.time()
         results = batched_runner.run_batched(cfg, flags, root,
                                              timings=timings)
         wall = time.time() - t0
-        launches = {fn: fn.launches for fn in counters}
+        launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         batched_runner.batched_metric_sampled = metric
 
-    log(f"timed pass: {wall:.3f} s, {len(flags) / wall * 60:.3f} objects/min")
-    log("stage walls (s): " + json.dumps(timings))
-    log("launches in the timed pass: " + json.dumps(
-        {f"{fn.__module__}.{fn.__name__}": n for fn, n in launches.items()}))
-    for f in flags:
-        m = results[f]
-        log(f"  {f}: CD x100 {m['cd'] * 100:.4f}, EMD x100 "
-            f"{m['emd'] * 100:.4f}")
+    log(f"{path}: timed pass {wall:.3f} s, "
+        f"{len(flags) / wall * 60:.3f} objects/min")
+    log(f"{path}: stage walls (s): " + json.dumps(
+        {k: round(v, 4) for k, v in timings.items()}))
+    log(f"{path}: launches in the timed pass: " + json.dumps(launches))
+    if set(results) != set(flags):
+        fail(f"{path}: missing objects in the results")
     cds = np.array([results[f]["cd"] for f in flags])
     emds = np.array([results[f]["emd"] for f in flags])
-    log(f"mean CD x100 {cds.mean() * 100:.4f}, mean EMD x100 "
-        f"{emds.mean() * 100:.4f}")
-    if set(results) != set(flags):
-        fail("main path: missing objects in the results")
     if not (np.isfinite(cds).all() and np.isfinite(emds).all()):
-        fail("main path: non-finite CD/EMD")
-    if any(n == 0 for n in launches.values()):
-        fail("main path: a kernel of the path was never launched")
+        fail(f"{path}: non-finite CD/EMD")
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        fail(f"{path}: kernels of the path never launched: {missing}")
     p, g = seen["p"], seen["g"]
     if p.shape != (len(flags), cfg.metric_points, 3) or p.shape != g.shape:
-        fail(f"main path: metric samples of shape {tuple(p.shape)}")
+        fail(f"{path}: metric samples of shape {tuple(p.shape)}")
     d1, _ = _nn_plain(p, g)
     d2, _ = _nn_plain(g, p)
     cd_plain = ((d1.clamp_min(0).sqrt().mean(1)
                  + d2.clamp_min(0).sqrt().mean(1)) / 2).cpu().numpy()
     rel = np.abs(cd_plain - cds) / cds
-    log(f"CD recomputed with the plain NN: max relative difference "
-        f"{rel.max():.3e}")
+    log(f"{path}: CD recomputed with the plain NN: max relative "
+        f"difference {rel.max():.3e}")
     if rel.max() > 1e-5:
-        fail("main path: reported CD disagrees with the plain recompute")
-    # every fused cloud was non-empty: a [13, 16384] metric sample exists
+        fail(f"{path}: reported CD disagrees with the plain recompute")
+    repeat = all(warm[f]["cd"] == results[f]["cd"] for f in flags)
+    log(f"{path}: warm-up and timed passes give bit-identical CD: {repeat}")
     torch.cuda.synchronize()
-    return {fn: n for fn, n in launches.items()}
+    return {"results": results, "launches": launches, "wall": wall,
+            "timings": timings, "repeat": repeat}
+
+
+def profile_pass(root: str, flags) -> None:
+    """One traced registration pass: device time by kernel (kernel rows
+    only, summed per name) and the device's busy share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.parallel import batched_runner
+    cfg = load_config(device="cuda", **dict(REDWOOD,
+                                            trust_aligned_completion=False))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        batched_runner.run_batched(cfg, flags, root)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = rows.get(evt.name, (0.0, 0))
+            rows[evt.name] = (ms + evt.device_time / 1e3, n + 1)
+    busy = sum(ms for ms, _ in rows.values())
+    log(f"profile: traced registration pass {wall:.3f} s, device busy "
+        f"{busy / 1e3:.3f} s ({busy / 1e3 / wall:.4f} of the wall), "
+        f"{sum(n for _, n in rows.values())} kernel launches")
+    for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:25]:
+        log(f"  {ms:10.3f} ms {n:7d}x  {name[:100]}")
 
 
 def main() -> int:
@@ -326,20 +556,47 @@ def main() -> int:
     log(f"build: {path.name} in {time.time() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    report = {}
-    for name, _spec, _src, _rep, check in KERNELS:
-        report[name] = check(dev)
+    report = {"chamfer_nn": check_k1(dev), "fps": check_k2(dev),
+              "emd_bid": check_k3(dev), **check_k4_k5(dev)}
 
-    # 4. the main path
-    counters = [wrapper(spec) for _, spec, _, _, _ in KERNELS]
+    # 4. the main paths
+    from genpc_tpu_torch.categories import REDWOOD_FLAGS
+    from genpc_tpu_torch.io.synthetic_data import write_dataset
+    counters = {name: wrapper(spec) for name, spec, _, _ in KERNELS}
+    flags = list(REDWOOD_FLAGS)
+    runs = {}
     with tempfile.TemporaryDirectory(prefix="genpc_smoke_") as tmp:
-        small_input_check(tmp)
-        launches = main_path(tmp, counters)
+        for seed in (1, 2):
+            small_input_check(tmp, seed)
+        root = os.path.join(tmp, "redwood_synthetic")
+        t0 = time.time()
+        write_dataset(root, flags, seed=0)
+        log(f"data: {len(flags)} synthetic objects written in "
+            f"{time.time() - t0:.1f} s")
+        for name in ("aligned", "registration"):
+            runs[name] = drive(name, root, flags, counters)
+        if "--profile" in sys.argv[1:]:
+            profile_pass(root, flags)
+    if not runs["registration"]["repeat"]:
+        fail("registration: the two passes disagree: the pose path is not "
+             "bitwise repeatable")
+    log("per object: CD x100 / EMD x100, aligned | registration")
+    for f in flags:
+        a, r = runs["aligned"]["results"][f], \
+            runs["registration"]["results"][f]
+        log(f"  {f}: {a['cd'] * 100:.4f} / {a['emd'] * 100:.4f} | "
+            f"{r['cd'] * 100:.4f} / {r['emd'] * 100:.4f}")
+    for name, run in runs.items():
+        res = run["results"].values()
+        log(f"{name}: mean CD x100 "
+            f"{sum(m['cd'] for m in res) / len(flags) * 100:.4f}, mean EMD "
+            f"x100 {sum(m['emd'] for m in res) / len(flags) * 100:.4f}")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[wrapper(spec)], **report[name]}
-        for name, spec, src, rep, _ in KERNELS]}))
+         "launches": runs["registration"]["launches"][name],
+         **report[name]}
+        for name, _spec, src, rep in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

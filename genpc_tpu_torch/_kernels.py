@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by nvcc for Hopper (``sm_90a``) into one shared
+The sources are compiled by nvcc for Hopper (``sm_90a``), one nvcc
+process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ctypes.  Nothing of PyTorch
 is included in the sources, so a build takes seconds.  The library lands
 in ``<repo>/build/`` under a name keyed by a hash of the sources and the
@@ -28,11 +29,13 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C entry -> argtypes (pointers and the stream as void*, sizes as int)
+_F = ctypes.c_float
+#: C entry -> argtypes (pointers and the stream as void*, sizes as int,
+#: scalars as float)
 _SIGNATURES = {
     # x, y, y_index, dist, idx, B, N, M, stream
     "genpc_nn": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -40,6 +43,10 @@ _SIGNATURES = {
     "genpc_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x1, x2, price, bid, best, better, B, n, m, stream
     "genpc_emd_bid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # table, acc, wacc, dmax, B, S, res, f, gamma, stream
+    "genpc_splat_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # table, cot, out, B, S, res, f, gamma, stream
+    "genpc_splat_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -76,20 +83,34 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
-    # build into a temp name, then rename: concurrent builds never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
+    cu = sorted(SRC_DIR.glob("*.cu"))
+    # one nvcc per source, all started together, then one link; built
+    # under a temp dir and renamed, so concurrent builds never see a
+    # half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in cu]
+        lib_tmp = os.path.join(tmp, out.name)
+        _nvcc_wait({src.name: [*NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                               str(src)] for src, obj in zip(cu, objs)},
+                   verbose)
+        _nvcc_wait({"link": ["-shared", "-o", lib_tmp, *objs]}, verbose)
+        os.replace(lib_tmp, out)
     return out
+
+
+def _nvcc_wait(jobs: dict[str, list[str]], verbose: bool) -> None:
+    """Run one nvcc per job, all at once; wait for all, raise if any
+    failed, print each one's ptxas report when verbose."""
+    procs = {what: subprocess.Popen([_nvcc(), *args], stderr=subprocess.PIPE,
+                                    text=True) for what, args in jobs.items()}
+    logs = {what: p.communicate()[1] for what, p in procs.items()}
+    failed = [f"{what} ({p.returncode}):\n{logs[what]}"
+              for what, p in procs.items() if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    if verbose:
+        for what, log in logs.items():
+            print(f"{what}:\n{log.strip()}")
 
 
 def lib() -> ctypes.CDLL:

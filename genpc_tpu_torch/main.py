@@ -3,11 +3,13 @@ genpc_tpu/main.py: the object-batched runner is the only one ported).
 
 Usage:
   python -m genpc_tpu_torch.main --config configs/redwood.yaml \
-      --data-dir DATA --flags 01184 05117 --aligned --device cuda
+      --data-dir DATA --flags 01184 05117 [--aligned] [--device cuda]
 
-Only the aligned-completion fast path is ported, so ``--aligned``
-(``trust_aligned_completion=True``) is required for now.  Workspace
-saving is not ported: runs use ``save=False``.
+Stage 3 registers every completion to its partial (pose optimisation,
+coarse and fine ICP sweeps, final refine), the reference's headline
+path.  ``--aligned`` (``trust_aligned_completion=True``) takes the fast
+path instead: completions their backend declares aligned skip
+registration.  Workspace saving is not ported: runs use ``save=False``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def main(argv=None):
                     help="override all generative backends (synthetic)")
     ap.add_argument("--aligned", action="store_true",
                     help="trust_aligned_completion: skip registration for "
-                         "completions already in the input frame")
+                         "completions already in the input frame (the "
+                         "fast path; default: register)")
     ap.add_argument("--no-emd", action="store_true")
     args = ap.parse_args(argv)
 

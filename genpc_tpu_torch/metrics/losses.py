@@ -1,0 +1,52 @@
+"""Completion losses: Chamfer-L1/L2, one-sided Chamfer, auction EMD
+(counterpart of genpc_tpu/metrics/losses.py; reference:
+utils/loss_util.py:8-53).
+
+  chamfer_l1  = (mean sqrt(d1) + mean sqrt(d2)) / 2
+  chamfer_l2  = mean d1 + mean d2
+  chamfer_partial_l1/l2 = one-sided variants (only d1 is computed; the
+                gradient equals the reference's custom VJP, whose d2 term
+                carries no cotangent)
+  emd_loss    = mean sqrt(auction_dist), eps=0.005, iters=50
+
+All accept [N,3] or [B,N,3] and are differentiable (chamfer through
+``ops/chamfer``; EMD with respect to the first argument only).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from genpc_tpu_torch.ops.chamfer import chamfer_distances, nn_one_sided
+from genpc_tpu_torch.ops.emd import emd_auction
+
+
+def _d1(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    batched = p1.ndim == 3
+    d1, _ = nn_one_sided(p1 if batched else p1[None],
+                         p2 if batched else p2[None])
+    return d1
+
+
+def chamfer_l1(p1, p2):
+    d1, d2, _, _ = chamfer_distances(p1, p2)
+    return (torch.sqrt(torch.clamp_min(d1, 0.0)).mean()
+            + torch.sqrt(torch.clamp_min(d2, 0.0)).mean()) / 2.0
+
+
+def chamfer_l2(p1, p2):
+    d1, d2, _, _ = chamfer_distances(p1, p2)
+    return d1.mean() + d2.mean()
+
+
+def chamfer_partial_l1(p1, p2):
+    return torch.sqrt(torch.clamp_min(_d1(p1, p2), 0.0)).mean()
+
+
+def chamfer_partial_l2(p1, p2):
+    return _d1(p1, p2).mean()
+
+
+def emd_loss(p1, p2, eps: float = 0.005, iters: int = 50):
+    d, _ = emd_auction(p1, p2, eps=eps, iters=iters)
+    return torch.sqrt(torch.clamp_min(d, 0.0)).mean()

@@ -8,8 +8,12 @@ fp32 form (dx*dx + dy*dy) + dz*dz, as the reference's CPU path
 ``_nn_xla`` does, with the first index winning ties.
 
 ``chamfer_nn`` is a ``torch.autograd.Function`` (the reference's
-``custom_vjp``); its backward is the gather + scatter-add gradient of the
-reference, in plain torch.
+``custom_vjp``); its backward is the reference's gather + scatter-add
+gradient in plain torch, with the scatter-add done by ``segment_sum``: a
+stable sort by target and a segmented scan, so the sum is taken in a
+fixed order without float atomics and the gradient repeats bitwise on
+the card.  ``nn_one_sided`` is the one-direction variant (only d1 is
+computed) with the same gradient; the pose loss uses it.
 
 Shapes: x [B,N,3], y [B,M,3] -> (d1 [B,N], d2 [B,M], idx1 [B,N] int32,
 idx2 [B,M] int32), d = squared L2.
@@ -98,6 +102,34 @@ _nn.launches = 0
 
 # ------------------------------------------------------------ public API ---
 
+def segment_sum(idx: torch.Tensor, vals: torch.Tensor, m: int) -> torch.Tensor:
+    """out[b, t] = sum of vals[b, s] over the s with idx[b, s] == t.
+
+    idx [B,N] (values in [0, m)), vals [B,N,C] -> [B,m,C].  Deterministic
+    on every device: a stable sort by target, then a segmented
+    Hillis-Steele scan (log2 N steps of adds between equal keys) whose
+    last element per segment is that target's sum; no atomics and no
+    host synchronisation."""
+    b, n = idx.shape
+    c = vals.shape[-1]
+    order = torch.argsort(idx, dim=1, stable=True)
+    key = torch.gather(idx, 1, order)
+    v = torch.gather(vals, 1, order[..., None].expand(-1, -1, c))
+    step = 1
+    while step < n:
+        same = (key[:, step:] == key[:, :-step])[..., None]
+        v = torch.cat([v[:, :step],
+                       v[:, step:] + torch.where(same, v[:, :-step], 0.0)],
+                      dim=1)
+        step *= 2
+    targets = torch.arange(m, device=idx.device).expand(b, m).contiguous()
+    end = torch.searchsorted(key, targets, right=True)        # [B,m]
+    start = torch.searchsorted(key, targets)
+    last = torch.gather(v, 1, (end - 1).clamp_min(0)[..., None]
+                        .expand(-1, -1, c))
+    return torch.where((end > start)[..., None], last, 0.0)
+
+
 class _ChamferNN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y):
@@ -121,11 +153,43 @@ class _ChamferNN(torch.autograd.Function):
         # reference chamfer3D.cu backward: +-2 g (x - y)
         g1 = 2.0 * gd1[..., None] * (x - y_at_i1)
         g2 = 2.0 * gd2[..., None] * (y - x_at_i2)
-        gx = g1 + torch.zeros_like(x).scatter_add(
-            1, i2.long()[..., None].expand(-1, -1, 3), -g2)
-        gy = torch.zeros_like(y).scatter_add(
-            1, i1.long()[..., None].expand(-1, -1, 3), -g1) + g2
+        gx = g1 + segment_sum(i2.long(), -g2, x.shape[1])
+        gy = segment_sum(i1.long(), -g1, y.shape[1]) + g2
         return gx, gy
+
+
+class _NNOneSided(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, y_index):
+        d1, i1 = _nn(x, y, y_index)
+        ctx.save_for_backward(x, y, i1, y_index)
+        ctx.mark_non_differentiable(i1)
+        return d1, i1
+
+    @staticmethod
+    def backward(ctx, gd1, _gi1):
+        x, y, i1, y_index = ctx.saved_tensors
+        ys = y.to(torch.float32)
+        if y_index is not None:
+            ys = ys[y_index.long()]
+        y_at_i1 = torch.gather(ys, 1, i1.long()[..., None].expand(-1, -1, 3))
+        g1 = 2.0 * gd1[..., None] * (x.to(torch.float32) - y_at_i1)
+        gy = None
+        if ctx.needs_input_grad[1]:
+            if y_index is not None:
+                raise ValueError("nn_one_sided: no gradient into a y "
+                                 "shared through y_index")
+            gy = segment_sum(i1.long(), -g1, y.shape[1])
+        return g1, gy, None
+
+
+def nn_one_sided(x: torch.Tensor, y: torch.Tensor,
+                 y_index: Optional[torch.Tensor] = None):
+    """(d1 [B,N], idx1 [B,N]) for x [B,N,3] into y, differentiable with
+    the gradient of ``chamfer_nn``'s d1 (d2 carries no cotangent).
+    y_index (int32 [B]) shares a y batch between x batches; y then gets
+    no gradient."""
+    return _NNOneSided.apply(x, y, y_index)
 
 
 def chamfer_nn(x: torch.Tensor, y: torch.Tensor):

@@ -2,16 +2,26 @@
 genpc_tpu/parallel/batched_runner.py).
 
 ``run_batched`` loads the objects, runs stage 1 over the whole batch
-(``make_stage1_core``), generates images, runs stage 2, fuses each
-completion with its partial, and scores every object with CD-ℓ1 and
-auction EMD after FPS to ``metric_points``.  The kernels K1 (Chamfer
-NN), K2 (FPS) and K3 (EMD bid) carry the hot loops.
+(``make_stage1_core``), generates images, runs stage 2, registers each
+completion to its partial and fuses the two (``batched_reg``), and
+scores every object with CD-ℓ1 and auction EMD after FPS to
+``metric_points``.
 
-Ported so far: the aligned-completion fast path, single device
-(``trust_aligned_completion=True`` with a backend whose output lives in
-the input frame).  Registration of unaligned completions (pose
-optimisation, ICP sweeps) and device meshes are ROADMAP queue 1 and
-raise ``NotImplementedError``.
+Stage 3 registers by default (``trust_aligned_completion=False``, the
+reference's headline path): batched pose optimisation (4 starts × 200
+Adam steps through the slot renderer, kernels K4/K5, and Chamfer terms,
+K1), the coarse ICP sweep over 11 scales, the 10³ per-axis fine grid,
+the anisotropic final refine, then dedup, FPS to ``fused_points`` (K2)
+and the outlier mask.  With ``trust_aligned_completion=True`` a
+completion that its backend declares aligned skips registration (the
+fast path).  Kernels K1 (Chamfer NN), K2 (FPS), K3 (EMD bid), K4/K5
+(slot splat) carry the hot loops.  Host preparation (voxel downsample,
+fixed resampling, the undo chain of transforms) is numpy, as in the
+reference.
+
+Not ported: device meshes (``cfg.mesh_shape``) and mesh-producing
+backends raise ``NotImplementedError``; the reference's
+``fusion_debug`` instrumentation waits for the Waymo slice.
 """
 
 from __future__ import annotations
@@ -20,23 +30,30 @@ import gc
 import math
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from genpc_tpu_torch.geometry.normalize import normalize_points
 from genpc_tpu_torch.io.ply import load_xyz
-from genpc_tpu_torch.ops.chamfer import chamfer_nn
+from genpc_tpu_torch.ops.chamfer import chamfer_nn, nearest_neighbor
 from genpc_tpu_torch.ops.emd import emd_auction
+from genpc_tpu_torch.ops.fps import fps_indices
 from genpc_tpu_torch.ops.fps_kernel import fps_batched
+from genpc_tpu_torch.ops.outliers import statistical_outlier_mask
+from genpc_tpu_torch.ops.voxel import voxel_down_sample
 from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
 from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import resample_fixed
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
+from genpc_tpu_torch.registration import icp as _icp
+from genpc_tpu_torch.registration.pose_optim import (
+    POSE_CHUNK, optimize_all_starts, pick_transforms)
 from genpc_tpu_torch.runtime import resolve_device
 
-_REG_TODO = ("registration of unaligned completions is not ported to "
-             "genpc_tpu_torch yet (ROADMAP queue 1: the registration slice)")
+POSE_N = 2048
+ICP_N = 2048
 
 
 # ------------------------------------------------------------ batched ops
@@ -68,26 +85,103 @@ def batched_metric_sampled(p: torch.Tensor, g: torch.Tensor,
     return cd, emd
 
 
+def batched_pose_optim(comp, comp_col, part, part_col, radius: float,
+                       lr: float, iters: int, render_size: int,
+                       chunk: int | None = None, coarse_frac: float = 0.7,
+                       coarse_res: int | None = None,
+                       prune_to: int = 1) -> torch.Tensor:
+    """Pose of each object's completion onto its partial (inputs
+    [B,N,3]); returns the best 4x4 per object [B,4,4].  Coarse-to-fine
+    and start pruning as in ``pose_optim.optimize_all_starts``."""
+    carry = optimize_all_starts(
+        comp, comp_col, part, part_col, radius, lr, iters, render_size,
+        chunk=chunk or POSE_CHUNK, coarse_frac=coarse_frac,
+        coarse_res=coarse_res, prune_to=prune_to)
+    return pick_transforms(carry)
+
+
+def batched_coarse_sweep(src: torch.Tensor, tgt: torch.Tensor,
+                         scales: torch.Tensor, cd_inv_weight: float):
+    """src/tgt [B,N,3]; scales [S] -> (best T [B,4,4], best loss [B]):
+    icp_with_scaling for every (object, scale) problem at once, the
+    lowest two-sided score per object (first index on ties)."""
+    b, n_s = src.shape[0], scales.shape[0]
+    obj = torch.arange(b, dtype=torch.int32,
+                       device=src.device).repeat_interleave(n_s)
+    cds, Ts = _icp._coarse_one(scales.to(torch.float32).repeat(b), src, tgt,
+                               cd_inv_weight, obj_index=obj)
+    cds = cds.reshape(b, n_s)
+    k = torch.argmin(cds, dim=1)
+    rows = torch.arange(b, device=src.device)
+    return Ts.reshape(b, n_s, 4, 4)[rows, k], cds[rows, k]
+
+
+def batched_fine_search(src: torch.Tensor, tgt: torch.Tensor,
+                        cd_inv_weight: float = 0.5, scale_steps: int = 10,
+                        chunk: int = 250) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-axis scale grid over a batch: returns (S [B,4,4], T [B,4,4]).
+
+    Every candidate is scored chamfer-only on the scaled-but-unregistered
+    source (the reference's semantics, see icp._fine_score); the grid is
+    built in float64 and scored in float32 chunks, the first minimum of a
+    chunk wins and a strict '<' decides across chunks; then one 15-step
+    ICP per object at its winner."""
+    axes = [np.linspace(0.8, 1.2, scale_steps)] * 3
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    b = src.shape[0]
+    best_cd = np.full(b, np.inf)
+    best_scales = np.ones((b, 3))
+    rows = np.arange(b)
+    for i in range(0, len(grid), chunk):
+        g = torch.as_tensor(grid[i:i + chunk], dtype=torch.float32,
+                            device=src.device)
+        cds = _icp._fine_score(g, src, tgt, cd_inv_weight).cpu().numpy()
+        j = cds.argmin(axis=1)
+        better = cds[rows, j] < best_cd
+        best_cd = np.where(better, cds[rows, j], best_cd)
+        best_scales[better] = grid[i:i + chunk][j][better]
+    best_T = _fine_icp_batch(torch.as_tensor(best_scales, dtype=torch.float32,
+                                             device=src.device), src, tgt)
+    S = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+    S[:, 0, 0], S[:, 1, 1], S[:, 2, 2] = best_scales.T
+    return S, best_T.cpu().numpy()
+
+
+def _fine_icp_batch(scales3: torch.Tensor, src: torch.Tensor,
+                    tgt: torch.Tensor) -> torch.Tensor:
+    """15-step ICP per object at its winning per-axis scales -> [B,4,4]."""
+    T, _, _ = _icp.icp(src * scales3[:, None], tgt, 0.075, iters=15)
+    return T
+
+
+def batched_similarity_refine(src: torch.Tensor, tgt: torch.Tensor,
+                              mode: str = "anisotropic") -> torch.Tensor:
+    """[B,N,3] partials -> [B,4,4] final-refine transforms onto the
+    completions.  mode: 'anisotropic' (R·diag(s), default), 'affine'
+    (general A) or 'similarity' (Umeyama c·R)."""
+    fn = {"anisotropic": _icp.anisotropic_icp, "affine": _icp.affine_icp,
+          "similarity": _icp.similarity_icp}[mode]
+    return fn(src, tgt, 0.05)
+
+
 # GT device-upload cache for repeated evals over the same object set
 _GT_DEVICE_CACHE: Dict[str, tuple] = {}
 
 
 # ----------------------------------------------------------------- runner
 
-def batched_reg(cfg, arts: List[ObjectArtifacts], mesh=None) -> None:
-    """Stage 3 for a batch of objects; writes fused clouds into arts.
+def _apply(T, pts):
+    return (pts @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
 
-    Only the aligned-completion fast path is ported: each aligned
-    completion is resampled to ``glb_sample_points`` and fused with its
-    partial (dedup, FPS to ``fused_points``, outlier mask)."""
-    if mesh is not None:
-        raise NotImplementedError("device meshes are not ported "
-                                  "(ROADMAP queue 1, item 9)")
-    if not bool(cfg.get("trust_aligned_completion", False)) or \
-            not all(a.complete_aligned for a in arts):
-        raise NotImplementedError(_REG_TODO)
+
+def _downsample_fixed(pts, n: int) -> np.ndarray:
+    """voxel 0.03 then fixed-size resample (the ICP inputs)."""
+    d, _ = voxel_down_sample(pts, 0.03)
+    return resample_fixed(d, n)[0].astype(np.float32)
+
+
+def _fuse_aligned(cfg, arts, device) -> None:
     from genpc_tpu_torch.registration.fusion import fuse_clouds
-    device = resolve_device(cfg.device)
     for art in arts:
         tgt, tgt_rgb = resample_fixed(
             art.complete_xyz, int(cfg.get("glb_sample_points", 163840)),
@@ -99,6 +193,152 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], mesh=None) -> None:
             (np.asarray(tgt_rgb, np.float32) if tgt_rgb is not None
              else None),
             num_points=int(cfg.get("fused_points", 20000)), device=device)
+
+
+def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
+                mesh=None, timings: Optional[Dict[str, float]] = None
+                ) -> None:
+    """Stage 3 for a batch of objects; writes fused clouds into arts.
+
+    With ``trust_aligned_completion`` the completions their backend
+    declares aligned are resampled and fused directly; every other
+    completion is registered: pose optimisation, coarse sweep, fine
+    grid, the reference's undo chain back into the input frame, the
+    final refine, then dedup + concat + FPS + outlier mask per object.
+    timings (optional) receives the walls of the registration steps
+    (reg_prep, reg_pose, reg_coarse, reg_fine, reg_refine, reg_fusion),
+    each ending in a device synchronisation."""
+    if mesh is not None:
+        raise NotImplementedError("device meshes are not ported "
+                                  "(ROADMAP queue 1, item 9)")
+    device = resolve_device(cfg.device)
+    if bool(cfg.get("trust_aligned_completion", False)):
+        _fuse_aligned(cfg, [a for a in arts if a.complete_aligned], device)
+        arts = [a for a in arts if not a.complete_aligned]
+        if not arts:
+            return
+    t_last = [time.time()]
+
+    def mark(name):
+        if timings is not None:
+            _sync(device)
+            now = time.time()
+            timings[name] = now - t_last[0] + timings.get(name, 0.0)
+            t_last[0] = now
+
+    def dev(arrays):
+        return torch.as_tensor(np.stack(arrays), dtype=torch.float32,
+                               device=device)
+
+    B = len(arts)
+    pose_n = int(cfg.get("pose_complete_points", POSE_N))
+    icp_n = int(cfg.get("icp_points", ICP_N))
+    glb_n = int(cfg.get("glb_sample_points", 163840))
+    # host prep: voxel downsample + fixed resample per object
+    pose_c, pose_cc, pose_p, pose_pc = [], [], [], []
+    tgts, tgt_rgbs, srcs, src_rgbs = [], [], [], []
+    for art in arts:
+        src = np.asarray(art.color_xyz, np.float32)
+        src_rgb = (np.asarray(art.color_rgb, np.float32)
+                   if art.color_rgb is not None else np.full_like(src, 0.5))
+        if art.complete_xyz is None:
+            raise NotImplementedError(
+                "mesh-producing image-to-3D backends are not ported "
+                "(ROADMAP queue 1, item 3)")
+        tgt, tgt_rgb = resample_fixed(art.complete_xyz, glb_n,
+                                      art.complete_rgb)
+        tgt = tgt.astype(np.float32)
+        tgt_rgb = (np.asarray(tgt_rgb, np.float32) if tgt_rgb is not None
+                   else np.full_like(tgt, 0.5))
+        srcs.append(src)
+        src_rgbs.append(src_rgb)
+        tgts.append(tgt)
+        tgt_rgbs.append(tgt_rgb)
+        pv, pvc = voxel_down_sample(src, 0.02, src_rgb)
+        t120, t120c = resample_fixed(tgt, min(120000, len(tgt)), tgt_rgb)
+        cv, cvc = voxel_down_sample(t120, 0.02, t120c)
+        pv, pvc = resample_fixed(pv, pose_n, pvc)
+        cv, cvc = resample_fixed(cv, pose_n, cvc)
+        pose_p.append(pv), pose_pc.append(pvc)
+        pose_c.append(cv), pose_cc.append(cvc)
+    mark("reg_prep")
+
+    T = batched_pose_optim(
+        dev(pose_c), dev(pose_cc), dev(pose_p), dev(pose_pc),
+        0.02, float(cfg.get("pose_lr", 0.01)),
+        int(cfg.get("pose_iters", 200)),
+        int(cfg.get("pose_render_size", 224)),
+        coarse_frac=float(cfg.get("pose_coarse_frac", 0.7)),
+        prune_to=int(cfg.get("pose_prune_starts", 0)))
+    diff_T = np.linalg.inv(T.cpu().numpy()).astype(np.float32)
+    mark("reg_pose")
+
+    # normalise targets, transform sources into the pose frame (host)
+    src_w = [_apply(diff_T[i], srcs[i]) for i in range(B)]
+    tgt_n = [normalize_points(t, range=0.5)[0] for t in tgts]
+
+    # coarse sweep on fixed-size voxel downsamples
+    coarse_T, _ = batched_coarse_sweep(
+        dev([_downsample_fixed(s, icp_n) for s in src_w]),
+        dev([_downsample_fixed(t, icp_n) for t in tgt_n]),
+        torch.as_tensor(np.linspace(1.5, 0.8, 11), dtype=torch.float32,
+                        device=device), cd_inv_weight)
+    coarse_T = coarse_T.cpu().numpy()
+    mark("reg_coarse")
+
+    # fine per-axis grid
+    src_w = [_apply(coarse_T[i], src_w[i]) for i in range(B)]
+    S, fine_T = batched_fine_search(
+        dev([_downsample_fixed(s, icp_n) for s in src_w]),
+        dev([_downsample_fixed(t, icp_n) for t in tgt_n]),
+        cd_inv_weight=cd_inv_weight,
+        scale_steps=int(cfg.get("fine_scale_steps", 10)))
+    mark("reg_fine")
+
+    # undo chain (reference order) back into the input frame
+    final_s, final_t = [], []
+    for i in range(B):
+        t = tgt_n[i]
+        t = _apply(np.linalg.inv(S[i]), t)
+        t = _apply(np.linalg.inv(fine_T[i]), t)
+        s = _apply(np.linalg.inv(coarse_T[i]), src_w[i])
+        t = _apply(np.linalg.inv(coarse_T[i]), t)
+        t = _apply(np.linalg.inv(diff_T[i]), t)
+        s = _apply(np.linalg.inv(diff_T[i]), s)
+        final_s.append(s)
+        final_t.append(t)
+
+    # final snap in the input frame (partial -> complete, the inverse
+    # applied to the complete)
+    if bool(cfg.get("final_icp_refine", True)):
+        Tr = batched_similarity_refine(
+            dev([_downsample_fixed(s, icp_n) for s in final_s]),
+            dev([_downsample_fixed(t, icp_n) for t in final_t]),
+            mode=str(cfg.get("final_refine", "anisotropic"))).cpu().numpy()
+        for i in range(B):
+            final_t[i] = _apply(np.linalg.inv(Tr[i]), final_t[i])
+    mark("reg_refine")
+
+    fused_n = int(cfg.get("fused_points", 20000))
+    for i, art in enumerate(arts):
+        s, t = final_s[i], final_t[i]
+        # dedup + concat + fps + denoise (per object; sizes differ)
+        d2, _ = nearest_neighbor(torch.as_tensor(t, device=device),
+                                 torch.as_tensor(s, device=device))
+        keep = d2.cpu().numpy() >= 1e-4
+        pts = np.concatenate([s, t[keep]])
+        cols = np.concatenate([src_rgbs[i], tgt_rgbs[i][keep]])
+        if len(pts) > fused_n:
+            idx = fps_indices(torch.as_tensor(pts, device=device),
+                              fused_n).cpu().numpy()
+            pts, cols = pts[idx], cols[idx]
+        mask = statistical_outlier_mask(
+            torch.as_tensor(pts, device=device),
+            int(cfg.get("denoise_neighbors", 20)),
+            float(cfg.get("denoise_std", 2.5))).cpu().numpy()
+        art.fused_xyz = pts[mask]
+        art.fused_rgb = cols[mask]
+    mark("reg_fusion")
 
 
 def _release_backend(owner, attr: str) -> None:
@@ -139,13 +379,12 @@ def run_batched(cfg, flags: List[str], data_dir: str,
 
     timings (optional dict) receives per-stage wall seconds
     (load/stage1/generate/stage2/stage3/metric), each stage ending in a
-    device synchronisation.  dp (optional) injects a pre-built
+    device synchronisation, and the registration steps inside stage 3
+    (``batched_reg``'s reg_* keys).  dp (optional) injects a pre-built
     DepthPrompting."""
     if cfg.get("mesh_shape"):
         raise NotImplementedError("cfg.mesh_shape: device meshes are not "
                                   "ported (ROADMAP queue 1, item 9)")
-    if not bool(cfg.get("trust_aligned_completion", False)):
-        raise NotImplementedError(_REG_TODO)
     device = resolve_device(cfg.device)
     t_last = [time.time()]
 
@@ -179,7 +418,7 @@ def run_batched(cfg, flags: List[str], data_dir: str,
 
     batch = batch or len(arts)
     for i in range(0, len(arts), batch):
-        batched_reg(cfg, arts[i:i + batch])
+        batched_reg(cfg, arts[i:i + batch], timings=timings)
     mark("stage3")
 
     # batched metric: FPS from the FULL clouds (reference: main.py:21-22).

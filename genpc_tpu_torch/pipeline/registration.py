@@ -1,8 +1,8 @@
 """Stage-3 helpers (counterpart of genpc_tpu/pipeline/registration.py).
 
-Only ``resample_fixed`` is ported so far: the aligned-completion fast
-path needs it.  The registration stage ``reg`` (pose optimisation, ICP
-sweeps) is the next slice (ROADMAP queue 1).
+Only ``resample_fixed`` is ported: the batched runner's stage 3 needs
+it.  The per-object registration stage ``reg`` is not on
+``run_batched``'s path and waits for ROADMAP queue 4.
 """
 
 from __future__ import annotations

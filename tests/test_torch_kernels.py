@@ -13,6 +13,10 @@ import torch
 from genpc_tpu_torch.ops.chamfer import _nn, _nn_plain, chamfer_nn
 from genpc_tpu_torch.ops.emd_kernel import bid, bid_plain
 from genpc_tpu_torch.ops.fps_kernel import fps_batched, fps_batched_plain
+from genpc_tpu_torch.render.point_renderer import (
+    RenderCamera, _build_table, _project_attrs)
+from genpc_tpu_torch.render.splat_kernel import (
+    assemble, assemble_bwd, assemble_bwd_plain, assemble_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +95,97 @@ def test_launch_counters_count_kernel_launches_only(dev):
     torch.cuda.synchronize()
     assert (_nn.launches, fps_batched.launches, bid.launches) == \
         tuple(c + 1 for c in before)
+
+
+def _tables(dev, r=3, n=2048, res=64, f=2, slots=6, seed=8):
+    """Slot tables of r seeded clouds, built by the port's _build_table."""
+    g = np.random.default_rng(seed)
+    pts = torch.tensor(g.normal(size=(r, n, 3)) * 0.3, dtype=torch.float32,
+                       device=dev)
+    cols = torch.tensor(g.random((r, n, 3)), dtype=torch.float32, device=dev)
+    px, py, dn, s2, inf = _project_attrs(pts, 0.02, RenderCamera.default(res),
+                                         f)
+    table, _, _ = _build_table(px, py, dn, s2, cols, inf, res, f, slots)
+    cots = (torch.tensor(g.normal(size=(r, 3, res, res)), dtype=torch.float32,
+                         device=dev),
+            torch.tensor(g.normal(size=(r, res, res)), dtype=torch.float32,
+                         device=dev))
+    return table, cots
+
+
+@pytest.mark.parametrize("res", [64, 224])
+def test_k4_k5_equal_plain_and_repeat(dev, res):
+    # the twins sum in the kernels' order with one rounding per operation
+    # and the same expf: bit-equal; every output written by one thread:
+    # the same bits from run to run
+    table, cots = _tables(dev, res=res)
+    (acc, wacc), dmax = assemble(table, res, 2, 1e-2)
+    (acc_p, wacc_p), dmax_p = assemble_plain(table, res, 2, 1e-2)
+    assert torch.equal(dmax, dmax_p)
+    assert torch.equal(acc, acc_p) and torch.equal(wacc, wacc_p)
+    (acc2, wacc2), dmax2 = assemble(table, res, 2, 1e-2)
+    assert torch.equal(acc, acc2) and torch.equal(wacc, wacc2)
+    d_t = assemble_bwd(table, cots, dmax, res, 2, 1e-2)
+    assert torch.equal(d_t, assemble_bwd_plain(table, cots, dmax, res, 2,
+                                               1e-2))
+    assert torch.equal(d_t, assemble_bwd(table, cots, dmax, res, 2, 1e-2))
+
+
+def test_chamfer_backward_repeats_bitwise(dev):
+    # many x points share one nearest y point: the per-target gradient sum
+    # has a fixed order (segment_sum), so two runs agree bitwise
+    x = _rand(9, 4, 3000, 3, dev=dev)
+    y = _rand(10, 4, 40, 3, dev=dev)
+    grads = []
+    for _ in range(2):
+        xa = x.detach().requires_grad_(True)
+        ya = y.detach().requires_grad_(True)
+        d1, d2, _, _ = chamfer_nn(xa, ya)
+        (d1.sum() + 0.5 * d2.sum()).backward()
+        grads.append((xa.grad, ya.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+def test_pose_step_is_deterministic(dev):
+    # one full pose step (loss, backward, Adam) at R = 2 objects x 4
+    # starts under torch's deterministic mode: any op with float atomics
+    # on the path raises; two runs agree bitwise
+    from genpc_tpu_torch.registration.pose_optim import (pose_carry_init,
+                                                         pose_carry_steps)
+    g = np.random.default_rng(11)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    comp = t(g.normal(size=(2, 512, 3)) * 0.25)
+    part = t(g.normal(size=(2, 512, 3)) * 0.25)
+    cols = t(g.random((2, 512, 3)))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        outs = []
+        for _ in range(2):
+            carry = pose_carry_init(comp, cols, part, cols, 0.02, 64)
+            outs.append(pose_carry_steps(carry, comp, cols, part, 0.02, 0.01,
+                                         2, 64))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for k in ("rot6d", "trans", "log_scale"):
+        assert torch.equal(outs[0]["params"][k], outs[1]["params"][k])
+    assert torch.equal(outs[0]["best"], outs[1]["best"])
+    assert torch.isfinite(outs[0]["best"]).all()
+
+
+def test_splat_launch_counters(dev):
+    table, cots = _tables("cpu", r=1, n=300, res=32)
+    before = (assemble.launches, assemble_bwd.launches)
+    (_, _), dmax = assemble(table, 32, 2, 1e-2)                # host: plain
+    assemble_bwd(table, cots, dmax, 32, 2, 1e-2)
+    assert (assemble.launches, assemble_bwd.launches) == before
+    td = table.to(dev)
+    (_, _), dmax = assemble(td, 32, 2, 1e-2)
+    assemble_bwd(td, tuple(c.to(dev) for c in cots), dmax, 32, 2, 1e-2)
+    torch.cuda.synchronize()
+    assert (assemble.launches, assemble_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
