@@ -9,18 +9,22 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build: compiles the CUDA kernels from genpc_tpu_torch/csrc into
      build/ (one nvcc per source, in parallel) and prints the build time;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it: parity, the kernel's, the plain
-     version's and (where one exists) a library call's times (CUDA
-     events, warm-up then the median of 3), and the least time the card
-     could take for the same work (bytes at 3.35 TB/s or fp32 operations
-     at 67 TFLOP/s, whichever is larger: the H100 SXM data sheet);
+     shapes the main paths give it (K2 at the metric's and at the
+     fusion's, with its cluster size and how many clusters fit at once):
+     parity, the kernel's, the plain version's and (where one exists) a
+     library call's times (CUDA events, warm-up then the median of 3),
+     and the least time the card could take for the same work (bytes at
+     3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is larger: the
+     H100 SXM data sheet);
   4. the main paths over 13 seeded synthetic objects at the Redwood
      protocol sizes: first a two-object check of each path, card against
-     host, on two data seeds; then the aligned-completion fast path and the registration path
-     (pose optimisation through K4/K5, ICP sweeps), each a warm-up and a
-     timed pass with the launch count of every kernel, the counts set to 0
-     just before the timed pass and read just after.  The registration
-     path's two passes must give bit-identical per-object CD.
+     host, on two data seeds; then the aligned-completion fast path and
+     the registration path (pose optimisation through K4/K5, ICP
+     sweeps), each a warm-up and a timed pass with the launch count of
+     every kernel, the counts set to 0 just before the timed pass and
+     read just after (K2 must launch FPS_LAUNCHES times: one fusion
+     launch over all objects).  The registration path's two passes must
+     give bit-identical per-object CD.
      --profile adds one torch.profiler pass of the registration path and
      prints device time by kernel (kernel rows only).
 
@@ -126,42 +130,74 @@ def check_k1(dev, small=(2, 300, 500), big=(13, 16384, 16384), seed=0):
             "library_ms": library_ms, **bd}
 
 
-def check_k2(dev, small=(2, 1000, 256), big=(13, 163840, 16384), seed=1):
-    """K2 (FPS) against its plain version."""
+def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
+             fusion=(13, 229376, 20000), seed=1):
+    """K2 (FPS) against its plain version: the exact sequence at a small
+    shape, at the metric's ([13,163840] -> 16,384) and at the fusion's (13
+    clouds of the fusion's sizes, up to 65,536 partial + 163,840
+    completion points, padded by repetition as ``fuse_clouds_batched``
+    pads them, -> 20,000).  Returns the metric shape's numbers."""
     import numpy as np
     import torch
-    from genpc_tpu_torch.ops.fps_kernel import fps_batched, fps_batched_plain
+    from genpc_tpu_torch.ops.fps import pad_repeat
+    from genpc_tpu_torch.ops.fps_kernel import (
+        _launch, active_clusters, fps_batched, fps_batched_plain, fps_plan)
     r = np.random.default_rng(seed)
     b, n, k = small
     p = torch.tensor(r.uniform(-1, 1, (b, n, 3)), dtype=torch.float32,
                      device=dev)
-    ik = fps_batched(p, k)
-    ip = fps_batched_plain(p, k)
-    torch.cuda.synchronize()
-    if not torch.equal(ik, ip):
+    if not torch.equal(fps_batched(p, k), fps_batched_plain(p, k)):
         fail("K2 small: sequence differs from the plain version")
-    rows = torch.arange(b, device=dev)[:, None]
-    err = (p[rows, ik.long()] - p[rows, ip.long()]).abs().max().item()
-    b, n, k = big
-    p = torch.tensor(r.uniform(-0.5, 0.5, (b, n, 3)), dtype=torch.float32,
-                     device=dev)
-    out = fps_batched(p, k)
-    ik = out.cpu().numpy()
-    ip = fps_batched_plain(p, k).cpu().numpy()
-    frac = min(len(set(ik[i].tolist()) & set(ip[i].tolist())) / k
-               for i in range(b))
-    log(f"K2 fps {big}: exact at {small}, selected-set agreement "
-        f"(worst object) {frac:.6f}")
-    if frac < 0.999:
-        fail("K2 big: below the 99.9% selected-set contract")
-    ms = cuda_ms(lambda: fps_batched(p, k))
-    plain_ms = cuda_ms(lambda: fps_batched_plain(p, k))
-    # each of the k-1 picks updates every point's distance (8 flops)
-    bd = bound(nbytes(p, out), 8.0 * b * n * (k - 1))
-    log(f"K2 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); no library call")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, **bd}
+    b, n, _ = fusion
+    fusion_sizes = n - r.integers(0, 32768, b)
+    fusion_sizes[0] = n
+    shapes = {"metric": ([metric[1]] * metric[0], metric[2]),
+              "fusion": (fusion_sizes.tolist(), fusion[2])}
+    out = {}
+    for name, (sizes, k) in shapes.items():
+        p = torch.tensor(pad_repeat([r.uniform(-0.5, 0.5, (m, 3))
+                                     for m in sizes]),
+                         dtype=torch.float32, device=dev)
+        b, n, _ = p.shape
+        plan = fps_plan(n)
+        active = active_clusters(dev.index or 0, plan["cluster"],
+                                 plan["ppt"])
+        ik = fps_batched(p, k)
+        ip = fps_batched_plain(p, k)
+        torch.cuda.synchronize()
+        exact = torch.equal(ik, ip)
+        rows = torch.arange(b, device=dev)[:, None]
+        err = (p[rows, ik.long()] - p[rows, ip.long()]).abs().max().item()
+        log(f"K2 fps {name} [{b},{n}] -> {k} (clouds of {min(sizes)}-"
+            f"{max(sizes)} points): C {plan['cluster']}, slice "
+            f"{plan['slice']} ({plan['on_chip']} on-chip), "
+            f"{active} clusters active at once; sequence equal to the "
+            f"plain version: {exact}")
+        if not exact:
+            fail(f"K2 {name}: sequence differs from the plain version")
+        ms = cuda_ms(lambda: fps_batched(p, k))
+        plain_ms = cuda_ms(lambda: fps_batched_plain(p, k))
+        # each of the k-1 picks updates every real point's distance (8
+        # flops); the real points read once, the indices written once
+        real = sum(sizes)
+        bd = bound(real * 12 + nbytes(ik), 8.0 * real * (k - 1))
+        log(f"K2 time {name}: kernel {ms:.3f} ms ({ms / (k - 1) * 1e3:.3f} "
+            f"us a pick), plain {plain_ms:.3f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); no library call")
+        # the trade the plan makes: half the cluster fits twice as many
+        # objects on the card at once, but streams part of each slice
+        half = max(1, plan["cluster"] // 2)
+        alt = fps_plan(n, half)
+        alt_ms = cuda_ms(lambda: _launch(p, k, 0, alt))
+        log(f"K2 time {name} at C {half} (slice {alt['slice']}, "
+            f"{alt['on_chip']} on-chip, "
+            f"{active_clusters(dev.index or 0, half, alt['ppt'])} clusters "
+            f"active at once): {alt_ms:.3f} ms")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, **bd}
+        del p, ik, ip
+        torch.cuda.empty_cache()
+    return out["metric"]
 
 
 def check_k3(dev, big=(13, 16384, 16384), seed=2):
@@ -312,6 +348,10 @@ KERNELS = [
 #: the kernels each main path must launch
 PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
                 "registration": tuple(k[0] for k in KERNELS)}
+#: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
+#: all objects) and the metric's prediction side (the GT side is cached
+#: from the warm-up), plus the pose path's two subsamples on registration
+FPS_LAUNCHES = {"aligned": 3, "registration": 5}
 
 
 def wrapper(spec):
@@ -438,18 +478,26 @@ def drive(path: str, root: str, flags, counters) -> dict:
     from genpc_tpu_torch.config import load_config
     from genpc_tpu_torch.ops.chamfer import _nn_plain
     from genpc_tpu_torch.parallel import batched_runner
+    from genpc_tpu_torch.registration import fusion
     cfg = load_config(device="cuda", **dict(
         REDWOOD, trust_aligned_completion=(path == "aligned")))
 
-    # record the metric's FPS samples to recompute CD independently
+    # record the metric's FPS samples to recompute CD independently, and
+    # the sizes of the clouds the fusion FPS pads into one batch
     seen = {}
     metric = batched_runner.batched_metric_sampled
+    pad = fusion.pad_repeat
 
     def recording_metric(p, g, **kw):
         seen["p"], seen["g"] = p, g
         return metric(p, g, **kw)
 
+    def recording_pad(clouds):
+        seen["fusion_sizes"] = [len(c) for c in clouds]
+        return pad(clouds)
+
     batched_runner.batched_metric_sampled = recording_metric
+    fusion.pad_repeat = recording_pad
     try:
         t0 = time.time()
         warm = batched_runner.run_batched(cfg, flags, root)
@@ -464,12 +512,17 @@ def drive(path: str, root: str, flags, counters) -> dict:
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
         batched_runner.batched_metric_sampled = metric
+        fusion.pad_repeat = pad
 
     log(f"{path}: timed pass {wall:.3f} s, "
         f"{len(flags) / wall * 60:.3f} objects/min")
     log(f"{path}: stage walls (s): " + json.dumps(
         {k: round(v, 4) for k, v in timings.items()}))
     log(f"{path}: launches in the timed pass: " + json.dumps(launches))
+    sizes = seen.get("fusion_sizes")
+    if sizes:
+        log(f"{path}: fusion FPS over {len(sizes)} clouds of {min(sizes)}-"
+            f"{max(sizes)} points in one launch")
     if set(results) != set(flags):
         fail(f"{path}: missing objects in the results")
     cds = np.array([results[f]["cd"] for f in flags])
@@ -479,6 +532,9 @@ def drive(path: str, root: str, flags, counters) -> dict:
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         fail(f"{path}: kernels of the path never launched: {missing}")
+    if launches["fps"] != FPS_LAUNCHES[path]:
+        fail(f"{path}: {launches['fps']} K2 launches, expected "
+             f"{FPS_LAUNCHES[path]}")
     p, g = seen["p"], seen["g"]
     if p.shape != (len(flags), cfg.metric_points, 3) or p.shape != g.shape:
         fail(f"{path}: metric samples of shape {tuple(p.shape)}")

@@ -39,8 +39,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, y, y_index, dist, idx, B, N, M, stream
     "genpc_nn": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # pts, min_d, out, B, N, k, start, stream
-    "genpc_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # pts, min_d, out, B, N, k, start, cluster, slice, ppt, stream
+    "genpc_fps": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # cluster, ppt, active (int*)
+    "genpc_fps_active_clusters": [_I, _I, ctypes.POINTER(_I)],
     # x1, x2, price, bid, best, better, B, n, m, stream
     "genpc_emd_bid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # table, acc, wacc, dmax, B, S, res, f, gamma, stream

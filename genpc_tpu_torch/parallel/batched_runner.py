@@ -37,17 +37,17 @@ import torch
 
 from genpc_tpu_torch.geometry.normalize import normalize_points
 from genpc_tpu_torch.io.ply import load_xyz
-from genpc_tpu_torch.ops.chamfer import chamfer_nn, nearest_neighbor
+from genpc_tpu_torch.ops.chamfer import chamfer_nn
 from genpc_tpu_torch.ops.emd import emd_auction
-from genpc_tpu_torch.ops.fps import fps_indices
+from genpc_tpu_torch.ops.fps import pad_repeat
 from genpc_tpu_torch.ops.fps_kernel import fps_batched
-from genpc_tpu_torch.ops.outliers import statistical_outlier_mask
 from genpc_tpu_torch.ops.voxel import voxel_down_sample
 from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
 from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import resample_fixed
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
 from genpc_tpu_torch.registration import icp as _icp
+from genpc_tpu_torch.registration.fusion import fuse_clouds_batched
 from genpc_tpu_torch.registration.pose_optim import (
     POSE_CHUNK, optimize_all_starts, pick_transforms)
 from genpc_tpu_torch.runtime import resolve_device
@@ -181,18 +181,22 @@ def _downsample_fixed(pts, n: int) -> np.ndarray:
 
 
 def _fuse_aligned(cfg, arts, device) -> None:
-    from genpc_tpu_torch.registration.fusion import fuse_clouds
+    """Fuse the aligned completions with their partials (one FPS launch
+    over the batch)."""
+    tgts, tgt_rgbs = [], []
     for art in arts:
         tgt, tgt_rgb = resample_fixed(
             art.complete_xyz, int(cfg.get("glb_sample_points", 163840)),
             art.complete_rgb)
-        art.fused_xyz, art.fused_rgb = fuse_clouds(
-            np.asarray(art.color_xyz, np.float32),
-            tgt.astype(np.float32),
-            np.asarray(art.color_rgb, np.float32),
-            (np.asarray(tgt_rgb, np.float32) if tgt_rgb is not None
-             else None),
-            num_points=int(cfg.get("fused_points", 20000)), device=device)
+        tgts.append(tgt.astype(np.float32))
+        tgt_rgbs.append(np.asarray(tgt_rgb, np.float32)
+                        if tgt_rgb is not None else None)
+    fused = fuse_clouds_batched(
+        [np.asarray(a.color_xyz, np.float32) for a in arts], tgts,
+        [np.asarray(a.color_rgb, np.float32) for a in arts], tgt_rgbs,
+        num_points=int(cfg.get("fused_points", 20000)), device=device)
+    for art, (pts, cols) in zip(arts, fused):
+        art.fused_xyz, art.fused_rgb = pts, cols
 
 
 def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
@@ -204,7 +208,8 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     declares aligned are resampled and fused directly; every other
     completion is registered: pose optimisation, coarse sweep, fine
     grid, the reference's undo chain back into the input frame, the
-    final refine, then dedup + concat + FPS + outlier mask per object.
+    final refine, then dedup + concat per object, one FPS launch over the
+    batch and the outlier masks (``fusion.fuse_clouds_batched``).
     timings (optional) receives the walls of the registration steps
     (reg_prep, reg_pose, reg_coarse, reg_fine, reg_refine, reg_fusion),
     each ending in a device synchronisation."""
@@ -319,25 +324,14 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
             final_t[i] = _apply(np.linalg.inv(Tr[i]), final_t[i])
     mark("reg_refine")
 
-    fused_n = int(cfg.get("fused_points", 20000))
-    for i, art in enumerate(arts):
-        s, t = final_s[i], final_t[i]
-        # dedup + concat + fps + denoise (per object; sizes differ)
-        d2, _ = nearest_neighbor(torch.as_tensor(t, device=device),
-                                 torch.as_tensor(s, device=device))
-        keep = d2.cpu().numpy() >= 1e-4
-        pts = np.concatenate([s, t[keep]])
-        cols = np.concatenate([src_rgbs[i], tgt_rgbs[i][keep]])
-        if len(pts) > fused_n:
-            idx = fps_indices(torch.as_tensor(pts, device=device),
-                              fused_n).cpu().numpy()
-            pts, cols = pts[idx], cols[idx]
-        mask = statistical_outlier_mask(
-            torch.as_tensor(pts, device=device),
-            int(cfg.get("denoise_neighbors", 20)),
-            float(cfg.get("denoise_std", 2.5))).cpu().numpy()
-        art.fused_xyz = pts[mask]
-        art.fused_rgb = cols[mask]
+    # dedup + concat + fps + denoise (one FPS launch over the batch)
+    fused = fuse_clouds_batched(
+        final_s, final_t, src_rgbs, tgt_rgbs,
+        num_points=int(cfg.get("fused_points", 20000)),
+        denoise_neighbors=int(cfg.get("denoise_neighbors", 20)),
+        denoise_std_ratio=float(cfg.get("denoise_std", 2.5)), device=device)
+    for art, (pts, cols) in zip(arts, fused):
+        art.fused_xyz, art.fused_rgb = pts, cols
     mark("reg_fusion")
 
 
@@ -421,11 +415,9 @@ def run_batched(cfg, flags: List[str], data_dir: str,
         batched_reg(cfg, arts[i:i + batch], timings=timings)
     mark("stage3")
 
-    # batched metric: FPS from the FULL clouds (reference: main.py:21-22).
-    # Static shapes come from padding each cloud to the batch max by
-    # repeating its own points: duplicates never win an FPS argmax tie
-    # (the original has the lower index) and have distance 0 once their
-    # original is selected, so the selected set equals the full-cloud run.
+    # batched metric: FPS from the FULL clouds (reference: main.py:21-22),
+    # each cloud padded to the batch max by repeating its own points
+    # (ops/fps.pad_repeat: the selected sequence equals the full-cloud run).
     results: Dict[str, Dict[str, float]] = {}
     preds, gts, valid = [], [], []
     for art in arts:
@@ -439,11 +431,6 @@ def run_batched(cfg, flags: List[str], data_dir: str,
         gts.append(np.asarray(gt, np.float32))
         valid.append(art.flag)
     if preds:
-        def pad_repeat(clouds):
-            n = max(len(c) for c in clouds)
-            return np.stack([np.concatenate(
-                [c, np.tile(c, (-(-n // len(c)) - 1, 1))[: n - len(c)]])
-                for c in clouds])
         preds = pad_repeat(preds)
         gts = pad_repeat(gts)
         # GT clouds are immutable across passes over one eval set: keep

@@ -12,7 +12,9 @@ import torch
 
 from genpc_tpu_torch.ops.chamfer import _nn, _nn_plain, chamfer_nn
 from genpc_tpu_torch.ops.emd_kernel import bid, bid_plain
-from genpc_tpu_torch.ops.fps_kernel import fps_batched, fps_batched_plain
+from genpc_tpu_torch.ops.fps import pad_repeat
+from genpc_tpu_torch.ops.fps_kernel import (_launch, fps_batched,
+                                            fps_batched_plain, fps_plan)
 from genpc_tpu_torch.render.point_renderer import (
     RenderCamera, _build_table, _project_attrs)
 from genpc_tpu_torch.render.splat_kernel import (
@@ -71,6 +73,70 @@ def test_k2_equals_plain(dev, b, n, k):
     # exact sequence, including k > N
     p = _rand(n, b, n, 3, dev=dev) * 2 - 1
     assert torch.equal(fps_batched(p, k), fps_batched_plain(p, k))
+
+
+@pytest.mark.parametrize("n,cluster", [
+    (16384, 1),          # the largest one-block object
+    (20000, 2),          # two blocks
+    (20003, 2),          # the last block's slice one point short
+    (140000, 16),        # the largest cluster
+    (140007, 16),        # ... with a short last slice
+    (270000, 16),        # slices beyond on-chip: the rest streams from L2
+])
+def test_k2_cluster_sizes_equal_plain(dev, n, cluster):
+    # the plan picks the cluster from N; every size gives the exact
+    # sequence of the plain loop
+    assert fps_plan(n)["cluster"] == cluster
+    p = _rand(n, 2, n, 3, dev=dev) * 2 - 1
+    assert torch.equal(fps_batched(p, 300), fps_batched_plain(p, 300))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 8, 16])
+def test_k2_forced_cluster_equals_plain(dev, cluster):
+    # a given cluster size, non-powers of two, short last slices (16 x 63
+    # > 1000) and streamed slices (cluster 1: 40,000 > 16,384 on-chip)
+    # included
+    for n, k in ((1000, 400), (40000, 200)):
+        p = _rand(n + cluster, 2, n, 3, dev=dev) * 2 - 1
+        assert torch.equal(_launch(p, k, 0, fps_plan(n, cluster)),
+                           fps_batched_plain(p, k))
+
+
+@pytest.mark.parametrize("cluster", [1, 16])
+def test_k2_k_above_n(dev, cluster):
+    # every point chosen, then index 0 for each further pick; cluster 16
+    # leaves the last two blocks without points (slices of 3)
+    p = _rand(40, 3, 40, 3, dev=dev)
+    out = _launch(p, 60, 0, fps_plan(40, cluster))
+    assert torch.equal(out, fps_batched_plain(p, 60))
+    assert (out[:, 40:] == 0).all()
+
+
+def test_k2_tie_across_a_block_boundary(dev):
+    # the farthest point from the start sits twice, at the last index of
+    # block 0 and the first of block 1 (slices of 10,000): the lower
+    # index wins, then the copy's distance is 0
+    p = _rand(12, 1, 20000, 3, dev=dev)
+    p[0, 0] = 0.0
+    p[0, 9999] = p[0, 10000] = 5.0
+    assert fps_plan(20000)["cluster"] == 2
+    out = fps_batched(p, 50)
+    assert torch.equal(out, fps_batched_plain(p, 50))
+    assert out[0, 1].item() == 9999 and 10000 not in out[0].tolist()
+
+
+def test_k2_pad_repeated_batch_equals_per_object(dev):
+    # one launch over ragged clouds padded by repetition = one launch per
+    # cloud, and the padded copies are never chosen
+    r = np.random.default_rng(13)
+    clouds = [r.uniform(-1, 1, (n, 3)).astype(np.float32)
+              for n in (70000, 100000, 131000)]
+    out = fps_batched(torch.tensor(pad_repeat(clouds), device=dev), 2000)
+    assert fps_plan(131000)["cluster"] == 8
+    for row, c in zip(out, clouds):
+        alone = fps_batched(torch.tensor(c[None], device=dev), 2000)[0]
+        assert torch.equal(row, alone)
+        assert row.max().item() < len(c)
 
 
 def test_k3_matches_plain(dev):

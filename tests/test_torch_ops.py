@@ -16,8 +16,8 @@ from genpc_tpu.ops.outliers import statistical_outlier_mask as jmask
 from genpc_tpu_torch.ops.chamfer import _nn, chamfer_nn, nearest_neighbor
 from genpc_tpu_torch.ops.emd import emd_auction
 from genpc_tpu_torch.ops.emd_kernel import bid
-from genpc_tpu_torch.ops.fps import farthest_point_sample
-from genpc_tpu_torch.ops.fps_kernel import fps_batched
+from genpc_tpu_torch.ops.fps import farthest_point_sample, pad_repeat
+from genpc_tpu_torch.ops.fps_kernel import fps_batched, fps_plan
 from genpc_tpu_torch.ops.knn import knn
 from genpc_tpu_torch.ops.outliers import statistical_outlier_mask
 
@@ -84,6 +84,43 @@ def test_fps_matches_xla_sequence(n, k):
     ref = np.stack([np.asarray(_fps_indices_xla(jnp.asarray(p), k))
                     for p in pts])
     np.testing.assert_array_equal(fps_batched(_t(pts), k).numpy(), ref)
+
+
+def test_fps_pad_repeated_ragged_batch_matches_per_object():
+    # one batched call over clouds padded by repetition picks each
+    # object's own sequence, which is the reference's, and never a copy
+    r = np.random.default_rng(11)
+    clouds = [r.uniform(-1, 1, (n, 3)).astype(np.float32)
+              for n in (700, 1000, 1300)]
+    padded = pad_repeat(clouds)
+    assert padded.shape == (3, 1300, 3)
+    np.testing.assert_array_equal(padded[0, 700:1400], clouds[0][:600])
+    got = fps_batched(_t(padded), 300).numpy()
+    for row, c in zip(got, clouds):
+        alone = fps_batched(_t(c[None]), 300).numpy()[0]
+        ref = np.asarray(_fps_indices_xla(jnp.asarray(c), 300))
+        np.testing.assert_array_equal(row, alone)
+        np.testing.assert_array_equal(row, ref)
+        assert row.max() < len(c)
+
+
+@pytest.mark.parametrize("n,cluster,slice_,ppt", [
+    (2048, 1, 2048, 4),          # the pose path's FPS
+    (65536, 4, 16384, 32),       # stage 1
+    (163840, 16, 10240, 32),     # the metric
+    (229376, 16, 14336, 32),     # a fusion cloud
+    (300000, 16, 18750, 32),     # beyond on-chip: 2,366 a block stream
+])
+def test_fps_plan_spreads_objects_over_clusters(n, cluster, slice_, ppt):
+    # the smallest power-of-two cluster whose slices fit on-chip
+    # (512 threads x 32 points), at most 16 blocks
+    plan = fps_plan(n)
+    assert (plan["cluster"], plan["slice"], plan["ppt"]) == \
+        (cluster, slice_, ppt)
+    assert plan["on_chip"] == min(slice_, 16384)
+    assert fps_plan(n, 3)["slice"] == -(-n // 3)
+    with pytest.raises(ValueError):
+        fps_plan(n, 17)
 
 
 def test_farthest_point_sample_small_cloud_returns_all():

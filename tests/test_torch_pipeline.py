@@ -158,6 +158,36 @@ def test_fuse_clouds_matches():
     np.testing.assert_array_equal(ct, cj)
 
 
+def test_fuse_clouds_batched_matches_per_object():
+    # three objects, one of them below num_points after the dedup (no
+    # FPS): one batched FPS over the other two gives, point for point and
+    # colour for colour, the per-object fusion of the port and of the
+    # reference
+    from genpc_tpu.registration.fusion import fuse_clouds as jfuse
+    from genpc_tpu_torch.registration.fusion import (fuse_clouds,
+                                                     fuse_clouds_batched)
+    r = np.random.default_rng(4)
+    srcs, tgts, src_cols, tgt_cols = [], [], [], []
+    for seed, n_src, n_tgt in ((5, 1500, 6000), (6, 200, 500),
+                               (7, 1200, 4000)):
+        part, _, gt, gt_rgb = make_object(seed, n_gt=n_tgt)
+        srcs.append(part[r.choice(len(part), n_src, replace=False)])
+        src_cols.append(r.random((n_src, 3)).astype(np.float32))
+        tgts.append(gt)
+        tgt_cols.append(gt_rgb)
+    got = fuse_clouds_batched(srcs, tgts, src_cols, tgt_cols,
+                              num_points=1000, device="cpu")
+    assert len(got) == 3
+    assert len(srcs[1]) + len(tgts[1]) < 1000
+    for i, (pt, ct) in enumerate(got):
+        pa, ca = fuse_clouds(srcs[i], tgts[i], src_cols[i], tgt_cols[i],
+                             num_points=1000, device="cpu")
+        pj, cj = jfuse(srcs[i], tgts[i], src_cols[i], tgt_cols[i],
+                       num_points=1000)
+        for a, b in ((pt, pa), (ct, ca), (pt, pj), (ct, cj)):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_batched_metric_sampled_matches():
     # CD: exact NN, mean order only (rtol 1e-6); EMD: 1e-3 relative, as
     # in test_torch_ops
