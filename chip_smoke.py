@@ -9,10 +9,14 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build: compiles the CUDA kernels from genpc_tpu_torch/csrc into
      build/ (one nvcc per source, in parallel) and prints the build time;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it (K2 at the metric's and at the
-     fusion's, with its cluster size and how many clusters fit at once):
+     shapes the main paths give it (K1 at every launch class of the
+     registration pass, K1_SHAPES, with its launch plan, distances
+     bit-equal, argmins the first index, and the count of tied minima;
+     K2 at the metric's and at the fusion's, with its cluster size and
+     how many clusters fit at once; K3 bitwise equal to
+     bid_plain_direct and within the reference contract of bid_plain):
      parity, the kernel's, the plain version's and (where one exists) a
-     library call's times (CUDA events, warm-up then the median of 3),
+     library call's times (CUDA events, warm-up then the median of 1-5),
      and the least time the card could take for the same work (bytes at
      3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is larger: the
      H100 SXM data sheet);
@@ -23,10 +27,13 @@ Phases (any failure exits non-zero; nothing is caught):
      sweeps), each a warm-up and a timed pass with the launch count of
      every kernel, the counts set to 0 just before the timed pass and
      read just after (K2 must launch FPS_LAUNCHES times: one fusion
-     launch over all objects).  The registration path's two passes must
-     give bit-identical per-object CD.
+     launch over all objects), and a histogram of the K1 and K3 launches
+     of the timed pass by shape (B, N, M): launches and summed time
+     (CUDA events around each call).  The registration path's two passes
+     must give bit-identical per-object CD.
      --profile adds one torch.profiler pass of the registration path and
-     prints device time by kernel (kernel rows only).
+     prints device time by kernel (kernel rows only), and K1's and K3's
+     sums.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no
@@ -39,6 +46,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -90,44 +98,149 @@ def fail(msg: str) -> None:
 
 # ------------------------------------------------------------ phase 3 ---
 
-def check_k1(dev, small=(2, 300, 500), big=(13, 16384, 16384), seed=0):
-    """K1 (chamfer NN) against its plain version."""
+#: K1 launch classes of the registration pass: name, (B, N, M), and the
+#: number of y batches x shares through y_index (0: one y per x batch).
+#: From the launch-shape histogram of phase 4: the metric (both
+#: directions), the per-object dedup (completion samples against the
+#: input partial), the mirror dedup of the symmetry completion, the
+#: symmetry sweep (13 objects x 24 azimuths x 13 offsets) and its fine
+#: sweep (x 9 azimuths), the fine scale grid (13 x 250 candidates), the
+#: coarse ICP (13 x 11 scales), the final refine and fine-grid ICP (13),
+#: the pose loss (52 renders, 512 and 2,048 points).
+K1_SHAPES = [
+    ("metric", (13, 16384, 16384), 0),
+    ("dedup", (1, 163840, 65536), 0),
+    ("mirror", (1, 65536, 65536), 0),
+    ("sweep", (4056, 4096, 4096), 13),
+    ("sweep_fine", (1521, 4096, 4096), 13),
+    ("fine", (3250, 2048, 2048), 13),
+    ("icp", (143, 2048, 2048), 13),
+    ("refine", (13, 2048, 2048), 0),
+    ("pose_512", (52, 512, 512), 13),
+    ("pose_2048", (52, 2048, 2048), 13),
+]
+K3_SHAPE = (13, 16384, 16384)
+
+
+def k1_inputs(dev, shape, shared, seed=0):
+    """Seeded x [B,N,3], y and y_index (None when shared == 0)."""
     import numpy as np
     import torch
-    from genpc_tpu_torch.ops.chamfer import _nn, _nn_plain
     r = np.random.default_rng(seed)
-    b, n, m = small
-    x = torch.tensor(r.random((b, n, 3)), dtype=torch.float32, device=dev)
-    y = torch.tensor(r.random((b, m, 3)), dtype=torch.float32, device=dev)
+    b, n, m = shape
+    by = shared or b
+    x = torch.tensor(r.random((b, n, 3), dtype=np.float32), device=dev)
+    y = torch.tensor(r.random((by, m, 3), dtype=np.float32), device=dev)
+    yi = (torch.tensor(np.arange(b) * by // b, dtype=torch.int32, device=dev)
+          if shared else None)
+    return x, y, yi
+
+
+def k3_inputs(dev, shape=K3_SHAPE, seed=2):
+    """Seeded sources, targets and prices (uniform in [0, 0.1))."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    b, n, m = shape
+    x1 = torch.tensor(r.random((b, n, 3), dtype=np.float32), device=dev)
+    x2 = torch.tensor(r.random((b, m, 3), dtype=np.float32), device=dev)
+    pr = torch.tensor(r.random((b, m), dtype=np.float32) * 0.1, device=dev)
+    return x1, x2, pr
+
+
+def _chunks(b, n, m, elems=1 << 28):
+    """(batch slice, row slice) pieces of a [b, n, m] pair matrix, each of
+    at most ~elems pairs."""
+    rows = max(1, min(n, elems // m))
+    objs = max(1, min(b, elems // (rows * m)))
+    for b0 in range(0, b, objs):
+        for r0 in range(0, n, rows):
+            yield slice(b0, b0 + objs), slice(r0, r0 + rows)
+
+
+def _y_of(y, yi, bs):
+    return y[bs] if yi is None else y[yi[bs].long()]
+
+
+def first_argmin(x, y, yi):
+    """The exact first-index argmin of every x row (the direct fp32 form)
+    and the rows that attain their minimum more than once."""
+    import torch
+    from genpc_tpu_torch.ops.chamfer import _sq_dist
+    b, n, _ = x.shape
+    m = y.shape[1]
+    cols = torch.arange(m, device=x.device)
+    first = torch.empty((b, n), dtype=torch.int64, device=x.device)
+    tied = torch.empty((b, n), dtype=torch.bool, device=x.device)
+    for bs, rs in _chunks(b, n, m, 1 << 26):
+        d = _sq_dist(x[bs, rs], _y_of(y, yi, bs))
+        eq = d == d.amin(dim=2, keepdim=True)
+        first[bs, rs] = torch.where(eq, cols, m).amin(dim=2)
+        tied[bs, rs] = eq.sum(dim=2) > 1
+    return first, tied
+
+
+def cdist_min(x, y, yi):
+    """The library yardstick of K1: torch.cdist + min, in pieces of at
+    most 2^28 pairs (a [13,16384,16384] matrix alone is 14 GB)."""
+    import torch
+    b, n, _ = x.shape
+    dist = torch.empty((b, n), device=x.device)
+    idx = torch.empty((b, n), dtype=torch.int64, device=x.device)
+    for bs, rs in _chunks(b, n, y.shape[1]):
+        dist[bs, rs], idx[bs, rs] = torch.cdist(
+            x[bs, rs], _y_of(y, yi, bs)).min(dim=2)
+    return dist, idx
+
+
+def check_k1(dev):
+    """K1 (chamfer NN) against its plain version at every launch class of
+    the registration pass: distances bit-equal, every argmin the exact
+    first index, and equal to the plain version's wherever the minimum is
+    unique (torch's CUDA min does not promise the first index on ties).
+    Returns the metric class's numbers, and every class's by name."""
+    import torch
+    from genpc_tpu_torch.ops.chamfer import _nn, _nn_plain, nn_plan
+    x, y, _ = k1_inputs(dev, (2, 300, 500), 0)
     dk, ik = _nn(x, y)
     dp, ip = _nn_plain(x, y)
     torch.cuda.synchronize()
     if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
         fail("K1 small: kernel differs from the plain version")
-    b, n, m = big
-    x = torch.tensor(r.random((b, n, 3)), dtype=torch.float32, device=dev)
-    y = torch.tensor(r.random((b, m, 3)), dtype=torch.float32, device=dev)
-    dk, ik = _nn(x, y)
-    dp, ip = _nn_plain(x, y)
-    torch.cuda.synchronize()
-    agree = ik == ip
-    frac = agree.float().mean().item()
-    exact = torch.equal(dk[agree], dp[agree])
-    err = (dk - dp).abs().max().item()
-    log(f"K1 chamfer_nn {big}: index agreement {frac:.6f}, distances exact "
-        f"where agreeing: {exact}, max |d| err {err:.3e}")
-    if frac < 0.999 or not exact:
-        fail("K1 big: below the 99.9% / exact-distance contract")
-    ms = cuda_ms(lambda: _nn(x, y))
-    plain_ms = cuda_ms(lambda: _nn_plain(x, y))
-    library_ms = cuda_ms(lambda: torch.cdist(x, y).min(dim=2))
-    # 3 sub + 3 mul + 2 add per pair; x, y read, dist and idx written once
-    bd = bound(nbytes(x, y, dk, ik), 8.0 * b * n * m)
-    log(f"K1 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cdist+min "
-        f"{library_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
-        f"({bd['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, **bd}
+    out = {}
+    for name, shape, shared in K1_SHAPES:
+        x, y, yi = k1_inputs(dev, shape, shared, seed=len(out))
+        plan = nn_plan(*shape)
+        dk, ik = _nn(x, y, yi)
+        dp, ip = _nn_plain(x, y, yi)
+        first, tied = first_argmin(x, y, yi)
+        torch.cuda.synchronize()
+        exact = torch.equal(dk, dp)
+        lowest = torch.equal(ik.long(), first)
+        unique_agree = bool(((ik == ip) | tied).all())
+        ties, differ = int(tied.sum()), int((ik != ip).sum())
+        log(f"K1 {name} {shape}{' y_index' if shared else ''}: plan "
+            f"rows {plan['rows']} threads {plan['threads']} splits "
+            f"{plan['splits']} ({plan['blocks']} blocks); distances "
+            f"bit-equal: {exact}; argmin the first index: {lowest}; "
+            f"{ties} rows with tied minima; {differ} indices differ from "
+            f"the plain version's, all on tied rows: {unique_agree}")
+        if not (exact and lowest and unique_agree):
+            fail(f"K1 {name}: not bit-equal / not the first index")
+        b, n, m = shape
+        ms = cuda_ms(lambda: _nn(x, y, yi), reps=5)
+        plain_ms = cuda_ms(lambda: _nn_plain(x, y, yi), reps=1)
+        library_ms = cuda_ms(lambda: cdist_min(x, y, yi), reps=1)
+        # 3 sub + 3 mul + 2 add per pair; x, y read, dist and idx written
+        bd = bound(nbytes(x, y, dk, ik), 8.0 * b * n * m)
+        log(f"K1 time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"cdist+min {library_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
+        out[name] = {"max_abs_err": (dk - dp).abs().max().item(), "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, **bd}
+        del x, y, yi, dk, ik, dp, ip, first
+        torch.cuda.empty_cache()
+    return out["metric"], out
 
 
 def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
@@ -200,35 +313,67 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     return out["metric"]
 
 
-def check_k3(dev, big=(13, 16384, 16384), seed=2):
-    """K3 (EMD bid phase) against its plain version."""
-    import numpy as np
+def topk_yardstick(x1, x2, pr):
+    """The library yardstick of K3: (3 - cdist - price).topk(2) in row
+    pieces of at most 2^28 pairs."""
     import torch
-    from genpc_tpu_torch.ops.emd_kernel import bid, bid_plain
-    r = np.random.default_rng(seed)
-    b, n, m = big
-    x1 = torch.tensor(r.random((b, n, 3)), dtype=torch.float32, device=dev)
-    x2 = torch.tensor(r.random((b, m, 3)), dtype=torch.float32, device=dev)
-    pr = torch.tensor(r.random((b, m)) * 0.1, dtype=torch.float32,
-                      device=dev)
-    bk, bestk, betk = bid(x1, x2, pr)
-    bp, bestp, betp = bid_plain(x1, x2, pr)
+    b, n, _ = x1.shape
+    vals = torch.empty((b, n, 2), device=x1.device)
+    idx = torch.empty((b, n, 2), dtype=torch.int64, device=x1.device)
+    for bs, rs in _chunks(b, n, x2.shape[1]):
+        vals[bs, rs], idx[bs, rs] = (3.0 - torch.cdist(x1[bs, rs], x2[bs])
+                                     - pr[bs, None]).topk(2, dim=2)
+    return vals, idx
+
+
+def check_k3(dev):
+    """K3 (EMD bid phase): bitwise equal to bid_plain_direct (the same
+    function in the same fp32 order) and within the reference contract of
+    bid_plain (the reference's XLA expansion: >= 99.5 % identical bids,
+    values within 2e-4)."""
+    import torch
+    from genpc_tpu_torch.ops.emd_kernel import (bid, bid_plain,
+                                                bid_plain_direct, bid_plan,
+                                                spatial_order)
+    x1, x2, pr = k3_inputs(dev)
+    b, n, m = K3_SHAPE
+    plan = bid_plan(b, n, m)
+    order = spatial_order(x1)
+    out_k = bid(x1, x2, pr, order=order)
+    out_u = bid(x1, x2, pr)
+    out_d = bid_plain_direct(x1, x2, pr)
+    out_p = bid_plain(x1, x2, pr)
     torch.cuda.synchronize()
-    frac = (bk == bp).float().mean().item()
-    err = max((bestk - bestp).abs().max().item(),
-              (betk - betp).abs().max().item())
-    log(f"K3 emd_bid {big}: bid agreement {frac:.6f}, max |best|,|better| "
-        f"err {err:.3e}")
+    bitwise = all(torch.equal(k, d) and torch.equal(u, d)
+                  for k, u, d in zip(out_k, out_u, out_d))
+    frac = (out_k[0] == out_p[0]).float().mean().item()
+    err = max((out_k[1] - out_p[1]).abs().max().item(),
+              (out_k[2] - out_p[2]).abs().max().item())
+    log(f"K3 emd_bid {K3_SHAPE}: plan rows {plan['rows']} threads "
+        f"{plan['threads']} ({plan['blocks']} blocks); bitwise equal to "
+        f"bid_plain_direct, with the auction's spatial row order and "
+        f"without: {bitwise}; against bid_plain: bid agreement "
+        f"{frac:.6f}, max |best|,|better| err {err:.3e}")
+    if not bitwise:
+        fail("K3: not bitwise equal to bid_plain_direct")
     if frac < 0.995 or err > 2e-4:
-        fail("K3: below the 99.5% / 2e-4 contract")
-    ms = cuda_ms(lambda: bid(x1, x2, pr))
-    plain_ms = cuda_ms(lambda: bid_plain(x1, x2, pr))
-    # distance (8) + sqrt + 2 sub per pair
-    bd = bound(nbytes(x1, x2, pr, bk, bestk, betk), 11.0 * b * n * m)
-    log(f"K3 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); no library call")
+        fail("K3: below the 99.5% / 2e-4 contract against bid_plain")
+    ms = cuda_ms(lambda: bid(x1, x2, pr, order=order), reps=5)
+    unordered_ms = cuda_ms(lambda: bid(x1, x2, pr), reps=5)
+    plain_ms = cuda_ms(lambda: bid_plain_direct(x1, x2, pr), reps=1)
+    xla_ms = cuda_ms(lambda: bid_plain(x1, x2, pr), reps=1)
+    library_ms = cuda_ms(lambda: topk_yardstick(x1, x2, pr), reps=1)
+    # the distance, 8 fp32 ops a pair: what every pair needs once the
+    # filter leaves the root and the subtractions to the few pairs that
+    # can enter the top two
+    bd = bound(nbytes(x1, x2, pr, *out_k), 8.0 * b * n * m)
+    log(f"K3 time: kernel {ms:.3f} ms (rows in the caller's order: "
+        f"{unordered_ms:.3f} ms), plain (direct) {plain_ms:.3f} ms, "
+        f"plain (expansion) {xla_ms:.3f} ms, (3 - cdist - price).topk(2) "
+        f"{library_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, **bd}
+            "library_ms": library_ms, **bd}
 
 
 def _pose_tables(dev, res, n_pts, seed=3):
@@ -504,6 +649,8 @@ def drive(path: str, root: str, flags, counters) -> dict:
         log(f"{path}: warm-up pass {time.time() - t0:.2f} s")
         for fn in counters.values():
             fn.launches = 0
+        for name in TRACED:
+            counters[name].trace = []
         timings = {}
         t0 = time.time()
         results = batched_runner.run_batched(cfg, flags, root,
@@ -513,12 +660,16 @@ def drive(path: str, root: str, flags, counters) -> dict:
     finally:
         batched_runner.batched_metric_sampled = metric
         fusion.pad_repeat = pad
+        traces = {name: counters[name].trace for name in TRACED}
+        for name in TRACED:
+            counters[name].trace = None
 
     log(f"{path}: timed pass {wall:.3f} s, "
         f"{len(flags) / wall * 60:.3f} objects/min")
     log(f"{path}: stage walls (s): " + json.dumps(
         {k: round(v, 4) for k, v in timings.items()}))
     log(f"{path}: launches in the timed pass: " + json.dumps(launches))
+    launch_histogram(path, traces)
     sizes = seen.get("fusion_sizes")
     if sizes:
         log(f"{path}: fusion FPS over {len(sizes)} clouds of {min(sizes)}-"
@@ -554,6 +705,28 @@ def drive(path: str, root: str, flags, counters) -> dict:
             "timings": timings, "repeat": repeat}
 
 
+#: wrappers whose launches the timed passes record by shape
+TRACED = ("chamfer_nn", "emd_bid")
+
+
+def launch_histogram(path: str, traces: dict) -> None:
+    """Launches and summed time (CUDA events around each wrapper call,
+    the merge of M splits included) by launch shape (B, N, M)."""
+    import torch
+    torch.cuda.synchronize()
+    for name, trace in traces.items():
+        rows = {}
+        for shape, start, end in trace:
+            n, ms = rows.get(shape, (0, 0.0))
+            rows[shape] = (n + 1, ms + start.elapsed_time(end))
+        total = sum(ms for _, ms in rows.values())
+        log(f"{path}: {name} launch shapes (B, N, M): {len(trace)} launches, "
+            f"{total:.3f} ms")
+        for shape, (n, ms) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+            log(f"  {str(shape):24s} {n:5d}x {ms:10.3f} ms "
+                f"({ms / n:.4f} ms each)")
+
+
 def profile_pass(root: str, flags) -> None:
     """One traced registration pass: device time by kernel (kernel rows
     only, summed per name) and the device's busy share of the wall."""
@@ -580,6 +753,13 @@ def profile_pass(root: str, flags) -> None:
         f"{sum(n for _, n in rows.values())} kernel launches")
     for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:25]:
         log(f"  {ms:10.3f} ms {n:7d}x  {name[:100]}")
+    for kernel, names in (("K1", ("nn_kernel", "nn_merge_kernel")),
+                          ("K3", ("bid_kernel",))):
+        pat = re.compile(r"(?<![A-Za-z_])(%s)\b" % "|".join(names))
+        hits = [v for k, v in rows.items() if pat.search(k)]
+        log(f"profile: {kernel} ({', '.join(names)}) "
+            f"{sum(ms for ms, _ in hits):.3f} ms over "
+            f"{sum(n for _, n in hits)} launches")
 
 
 def main() -> int:
@@ -612,7 +792,7 @@ def main() -> int:
     log(f"build: {path.name} in {time.time() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    report = {"chamfer_nn": check_k1(dev), "fps": check_k2(dev),
+    report = {"chamfer_nn": check_k1(dev)[0], "fps": check_k2(dev),
               "emd_bid": check_k3(dev), **check_k4_k5(dev)}
 
     # 4. the main paths

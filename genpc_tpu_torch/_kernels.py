@@ -15,6 +15,7 @@ that is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,14 +38,17 @@ _F = ctypes.c_float
 #: C entry -> argtypes (pointers and the stream as void*, sizes as int,
 #: scalars as float)
 _SIGNATURES = {
-    # x, y, y_index, dist, idx, B, N, M, stream
-    "genpc_nn": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, y_index, dist, idx, dpart, ipart, B, N, M, rows, threads,
+    # splits, chunk, stream
+    "genpc_nn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # pts, min_d, out, B, N, k, start, cluster, slice, ppt, stream
     "genpc_fps": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # cluster, ppt, active (int*)
     "genpc_fps_active_clusters": [_I, _I, ctypes.POINTER(_I)],
-    # x1, x2, price, bid, best, better, B, n, m, stream
-    "genpc_emd_bid": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x1, x2, price, order, bid, best, better, B, n, m, rows, group,
+    # threads, stream
+    "genpc_emd_bid": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P],
     # table, acc, wacc, dmax, B, S, res, f, gamma, stream
     "genpc_splat_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # table, cot, out, B, S, res, f, gamma, stream
@@ -157,3 +161,20 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: dtype {t.dtype} (fp32/int32 only)")
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+@contextlib.contextmanager
+def traced(fn, shape: tuple):
+    """Around one user-level launch of the wrapper ``fn``: when
+    ``fn.trace`` is a list, append (shape, start, end) with CUDA events
+    recorded on the current stream before and after (the launch-shape
+    histogram of chip_smoke.py); otherwise do nothing."""
+    if fn.trace is None:
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    fn.trace.append((shape, start, end))

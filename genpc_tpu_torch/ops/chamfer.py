@@ -5,7 +5,9 @@ a CPU tensor takes ``_nn_plain`` (row-tiled torch), a CUDA tensor
 launches the hand-written kernel K1 (csrc/chamfer_nn.cu, which replaces
 the Pallas ``_nn_kernel``; see the note there).  Both compute the direct
 fp32 form (dx*dx + dy*dy) + dz*dz, as the reference's CPU path
-``_nn_xla`` does, with the first index winning ties.
+``_nn_xla`` does, with the first index winning ties.  ``nn_plan`` says
+how a launch covers x and y on the card (rows a thread, block size, M
+splits merged by a second small kernel).
 
 ``chamfer_nn`` is a ``torch.autograd.Function`` (the reference's
 ``custom_vjp``); its backward is the reference's gather + scatter-add
@@ -28,7 +30,21 @@ import torch
 from genpc_tpu_torch import _kernels
 
 _TILE_ELEMS = 1 << 22   # pair distances per plain-path tile
-_MAX_GRID_Y = 65535     # CUDA grid.y limit: the kernel batch per launch
+
+#: launch plans of csrc/chamfer_nn.cu (K1) and csrc/emd_bid.cu (K3):
+#: threads a block; K1's rows a thread (the kernel takes 2 or 4): 2 below
+#: SMALL_ROWS x rows a launch (the pose loss's), else 4; the SMs of an
+#: H100; the blocks a K1 launch should reach before it stops splitting M
+#: (eight 4-warp blocks a SM); the fewest columns an M split keeps; the
+#: fewest pairs a launch must hold to be split at all (below, the merge's
+#: second launch costs more than the split gains)
+THREADS = 128
+SMALL_ROWS = 1 << 17
+SMS = 132
+TARGET_BLOCKS = 8 * SMS
+MIN_SPLIT_COLS = 512
+MIN_SPLIT_PAIRS = 1 << 28
+_GRID_X = (1 << 31) - 1  # CUDA grid.x limit
 
 
 def _sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -60,6 +76,46 @@ def _nn_plain(x: torch.Tensor, y: torch.Tensor,
     return dist, idx
 
 
+def nn_plan(b: int, n: int, m: int, rows: int | None = None,
+            threads: int | None = None, splits: int | None = None) -> dict:
+    """How K1 covers x [b,n,3] against y [.,m,3] on the card.
+
+    A block of ``threads`` threads owns ``rows * threads`` consecutive x
+    rows of one batch (thread t the rows t + r * threads, r < rows) and
+    the y columns of one split: split s covers [s * chunk, min(m, (s + 1)
+    * chunk)).  The grid is linear, blocks = b * splits * tiles with the
+    row tile fastest.  Unless given, rows is 2 for launches of fewer than
+    SMALL_ROWS x rows and 4 otherwise; threads is THREADS, halved (down to
+    64) while the launch has fewer blocks than the card has SMs; and a
+    launch of at least MIN_SPLIT_PAIRS pairs has M split in halves (each
+    split at least MIN_SPLIT_COLS columns) until it reaches
+    TARGET_BLOCKS.  Launches of few rows (a one-cloud dedup, the metric's
+    13 x 16,384, the coarse ICP) then still fill the 132 SMs with enough
+    warps to hide the scan's latencies."""
+    if b < 1 or n < 1 or m < 1:
+        raise ValueError(f"nn_plan: B={b}, N={n}, M={m}")
+    rows = rows or (2 if b * n < SMALL_ROWS else 4)
+    t = threads or THREADS
+    while threads is None and t > 64 and b * -(-n // (t * rows)) < SMS:
+        t //= 2
+    threads = t
+    if rows not in (2, 4) or threads % 32 or not 32 <= threads <= 256:
+        raise ValueError(f"nn_plan: rows {rows}, threads {threads}")
+    tiles = -(-n // (threads * rows))
+    s = splits or 1
+    while splits is None and b * n * m >= MIN_SPLIT_PAIRS and \
+            b * tiles * s < TARGET_BLOCKS and m // (2 * s) >= MIN_SPLIT_COLS:
+        s *= 2
+    tile_pts = 2 * threads                # y points a shared tile holds
+    chunk = -(-(-(-m // s)) // tile_pts) * tile_pts
+    s = -(-m // chunk)                    # no empty split
+    blocks = b * s * tiles
+    if blocks > _GRID_X:
+        raise ValueError(f"nn_plan: {blocks} blocks exceed grid.x")
+    return {"rows": rows, "threads": threads, "tiles": tiles, "splits": s,
+            "chunk": chunk, "blocks": blocks}
+
+
 def _nn(x: torch.Tensor, y: torch.Tensor,
         y_index: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,7 +123,9 @@ def _nn(x: torch.Tensor, y: torch.Tensor,
 
     x [B,N,3] fp32; y [By,M,3] fp32; y_index (optional int32 [B]) names
     the y batch each x batch searches (default: the same batch).  CPU
-    tensors take the plain version; CUDA tensors launch K1."""
+    tensors take the plain version; CUDA tensors launch K1 with
+    ``nn_plan(B, N, M)``: one launch per call, plus the merge of the M
+    splits when the plan splits (counted once, in ``_nn.launches``)."""
     x = x.to(torch.float32).contiguous()
     y = y.to(torch.float32).contiguous()
     if y.shape[1] == 0:
@@ -78,26 +136,38 @@ def _nn(x: torch.Tensor, y: torch.Tensor,
         y_index = y_index.to(device=x.device, dtype=torch.int32).contiguous()
     _kernels.require_cuda("nn", x, y, *(() if y_index is None
                                          else (y_index,)))
+    return _launch(x, y, y_index, nn_plan(x.shape[0], x.shape[1],
+                                          y.shape[1]))
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor, y_index: Optional[torch.Tensor],
+            plan: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1 on contiguous fp32 CUDA tensors with the given plan
+    (``_nn`` passes ``nn_plan``; tests and the smoke run force others)."""
     b, n, _ = x.shape
     m = y.shape[1]
+    if y_index is None and y.shape[0] != b:
+        raise ValueError(f"nn: {b} x batches against {y.shape[0]} y batches")
     dist = torch.empty((b, n), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=x.device)
-    lib = _kernels.lib()
-    with torch.cuda.device(x.device):
-        for b0 in range(0, b, _MAX_GRID_Y):
-            b1 = min(b, b0 + _MAX_GRID_Y)
-            yi = None if y_index is None else y_index[b0:b1]
-            ys = y[b0:b1] if y_index is None else y
-            rc = lib.genpc_nn(x[b0:b1].data_ptr(), ys.data_ptr(),
-                              _kernels.ptr(yi), dist[b0:b1].data_ptr(),
-                              idx[b0:b1].data_ptr(), b1 - b0, n, m,
-                              _kernels.stream(x))
-            _kernels.check(rc, "genpc_nn")
-            _nn.launches += 1
+    part = plan["splits"] > 1
+    dpart = (torch.empty((plan["splits"], b, n), dtype=torch.float32,
+                         device=x.device) if part else None)
+    ipart = (torch.empty((plan["splits"], b, n), dtype=torch.int32,
+                         device=x.device) if part else None)
+    with torch.cuda.device(x.device), _kernels.traced(_nn, (b, n, m)):
+        rc = _kernels.lib().genpc_nn(
+            x.data_ptr(), y.data_ptr(), _kernels.ptr(y_index),
+            dist.data_ptr(), idx.data_ptr(), _kernels.ptr(dpart),
+            _kernels.ptr(ipart), b, n, m, plan["rows"], plan["threads"],
+            plan["splits"], plan["chunk"], _kernels.stream(x))
+    _kernels.check(rc, "genpc_nn")
+    _nn.launches += 1
     return dist, idx
 
 
 _nn.launches = 0
+_nn.trace = None
 
 
 # ------------------------------------------------------------ public API ---

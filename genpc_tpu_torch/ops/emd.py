@@ -2,7 +2,8 @@
 
 Counterpart of genpc_tpu/ops/emd.py (Bertsekas auction, as in the
 reference CUDA extension ``emd_cuda.cu``).  Per iteration every source
-row bids (``ops/emd_kernel.bid``: kernel K3 on CUDA), then the assign
+row bids (``ops/emd_kernel.bid``: kernel K3 on CUDA, its threads taking
+the rows in one spatial order computed once), then the assign
 phase, in plain torch scatters, lets each target keep its highest bid:
   * GetMax: per-target max increment (``scatter_reduce_`` "amax");
   * winners are the unassigned bidders within 1e-6 of that max, and the
@@ -23,6 +24,7 @@ from typing import Tuple
 import torch
 
 from genpc_tpu_torch.ops.emd_kernel import bid as bid_phase
+from genpc_tpu_torch.ops.emd_kernel import spatial_order
 
 _NEG = -1e30
 
@@ -70,8 +72,11 @@ def _emd_batched(x1: torch.Tensor, x2: torch.Tensor, eps: float,
     assignment = torch.full((b, n), -1, dtype=torch.int32, device=x1.device)
     assignment_inv = torch.full_like(assignment, -1)
     price = torch.zeros((b, n), dtype=torch.float32, device=x1.device)
+    # the sources are the same in every bid: on the card, one spatial
+    # order of them serves all (it changes no output)
+    order = spatial_order(x1) if x1.is_cuda else None
     for i in range(iters):
-        bid, best, better = bid_phase(x1, x2, price)
+        bid, best, better = bid_phase(x1, x2, price, order=order)
         inc = best - better + eps
         assignment, assignment_inv, price = _assign_phase(
             bid, inc, i == iters - 1, assignment, assignment_inv, price)

@@ -10,11 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from genpc_tpu_torch.ops.chamfer import _nn, _nn_plain, chamfer_nn
-from genpc_tpu_torch.ops.emd_kernel import bid, bid_plain
+from genpc_tpu_torch.ops.chamfer import (_launch, _nn, _nn_plain, _sq_dist,
+                                         chamfer_nn, nn_plan)
+from genpc_tpu_torch.ops.emd_kernel import _launch as bid_launch
+from genpc_tpu_torch.ops.emd_kernel import (bid, bid_plain, bid_plain_direct,
+                                            bid_plan, spatial_order)
 from genpc_tpu_torch.ops.fps import pad_repeat
-from genpc_tpu_torch.ops.fps_kernel import (_launch, fps_batched,
-                                            fps_batched_plain, fps_plan)
+from genpc_tpu_torch.ops.fps_kernel import _launch as fps_launch
+from genpc_tpu_torch.ops.fps_kernel import (fps_batched, fps_batched_plain,
+                                            fps_plan)
 from genpc_tpu_torch.render.point_renderer import (
     RenderCamera, _build_table, _project_attrs)
 from genpc_tpu_torch.render.splat_kernel import (
@@ -52,6 +56,87 @@ def test_k1_y_index_equals_plain(dev):
     dk, ik = _nn(x, y, yi)
     dp, ip = _nn_plain(x, y, yi)
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+def _first_argmin(x, y, y_index=None):
+    """Exact first-index argmin of every x row and the rows whose minimum
+    is attained more than once (the direct fp32 form, in row pieces)."""
+    b, n, _ = x.shape
+    m = y.shape[1]
+    ys = y if y_index is None else y[y_index.long()]
+    cols = torch.arange(m, device=x.device)
+    first, tied = [], []
+    for r0 in range(0, n, 256):
+        d = _sq_dist(x[:, r0:r0 + 256], ys)
+        eq = d == d.amin(dim=2, keepdim=True)
+        first.append(torch.where(eq, cols, m).amin(dim=2))
+        tied.append(eq.sum(dim=2) > 1)
+    return torch.cat(first, 1), torch.cat(tied, 1)
+
+
+#: the K1 launch classes of the registration pass (B, N, M, y batches
+#: shared through y_index, 0: none); the sweep and the fine grid at a
+#: smaller batch that keeps their launch plans
+K1_CLASSES = [(13, 16384, 16384, 0), (1, 163840, 65536, 0),
+              (1, 65536, 65536, 0), (338, 4096, 4096, 13),
+              (650, 2048, 2048, 13), (143, 2048, 2048, 13),
+              (13, 2048, 2048, 0), (52, 512, 512, 13), (52, 2048, 2048, 13),
+              (52, 2048, 2048, 0)]
+
+
+@pytest.mark.parametrize("b,n,m,shared", K1_CLASSES)
+def test_k1_launch_classes_equal_plain(dev, b, n, m, shared):
+    # distances bit-equal to the plain version, every argmin the first
+    # index, and the plain version's index wherever the minimum is unique
+    # (torch's CUDA min does not promise the first index on ties)
+    r = np.random.default_rng(b + n + m)
+    x = torch.tensor(r.random((b, n, 3), dtype=np.float32), device=dev)
+    y = torch.tensor(r.random((shared or b, m, 3), dtype=np.float32),
+                     device=dev)
+    yi = (torch.tensor(np.arange(b) * shared // b, dtype=torch.int32,
+                       device=dev) if shared else None)
+    dk, ik = _nn(x, y, yi)
+    dp, ip = _nn_plain(x, y, yi)
+    first, tied = _first_argmin(x, y, yi)
+    assert torch.equal(dk, dp)
+    assert torch.equal(ik.long(), first)
+    assert ((ik == ip) | tied).all()
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4, 8])
+def test_k1_split_tie_across_the_boundary(dev, splits):
+    # one x row whose nearest y points sit twice, at the last index of
+    # one split and the first of the next: the merge keeps the lower
+    # index; every split gives the bits of the unsplit launch and the
+    # numpy first-index argmin
+    r = np.random.default_rng(splits)
+    x = r.random((2, 300, 3), dtype=np.float32)
+    y = r.random((2, 4096, 3), dtype=np.float32)
+    plan = nn_plan(2, 300, 4096, splits=splits)
+    assert plan["splits"] == splits
+    edge = plan["chunk"]
+    x[0, 7] = (2.0, 2.0, 2.0)
+    y[0, edge - 1] = y[0, edge] = (2.0, 2.0, 2.001)
+    d = ((x[:, :, None] - y[:, None]) ** 2).sum(-1)
+    xt, yt = torch.tensor(x, device=dev), torch.tensor(y, device=dev)
+    dk, ik = _launch(xt, yt, None, plan)
+    one = _launch(xt, yt, None, nn_plan(2, 300, 4096, splits=1))
+    assert ik[0, 7].item() == edge - 1
+    np.testing.assert_array_equal(ik.cpu().numpy(), d.argmin(-1))
+    assert torch.equal(dk, one[0]) and torch.equal(ik, one[1])
+    assert torch.equal(dk, _nn_plain(xt, yt)[0])
+
+
+@pytest.mark.parametrize("rows,threads", [(2, 64), (2, 256), (4, 64),
+                                          (4, 128), (4, 256)])
+def test_k1_plans_equal_plain(dev, rows, threads):
+    # any rows a thread and block size covers the same rows, short last
+    # tiles included
+    x, y = _rand(31, 3, 1000, 3, dev=dev), _rand(32, 3, 2500, 3, dev=dev)
+    dk, ik = _launch(x, y, None, nn_plan(3, 1000, 2500, rows, threads))
+    dp, _ = _nn_plain(x, y)
+    first, _ = _first_argmin(x, y)
+    assert torch.equal(dk, dp) and torch.equal(ik.long(), first)
 
 
 def test_chamfer_grad_on_card_equals_host(dev):
@@ -98,7 +183,7 @@ def test_k2_forced_cluster_equals_plain(dev, cluster):
     # included
     for n, k in ((1000, 400), (40000, 200)):
         p = _rand(n + cluster, 2, n, 3, dev=dev) * 2 - 1
-        assert torch.equal(_launch(p, k, 0, fps_plan(n, cluster)),
+        assert torch.equal(fps_launch(p, k, 0, fps_plan(n, cluster)),
                            fps_batched_plain(p, k))
 
 
@@ -107,7 +192,7 @@ def test_k2_k_above_n(dev, cluster):
     # every point chosen, then index 0 for each further pick; cluster 16
     # leaves the last two blocks without points (slices of 3)
     p = _rand(40, 3, 40, 3, dev=dev)
-    out = _launch(p, 60, 0, fps_plan(40, cluster))
+    out = fps_launch(p, 60, 0, fps_plan(40, cluster))
     assert torch.equal(out, fps_batched_plain(p, 60))
     assert (out[:, 40:] == 0).all()
 
@@ -151,6 +236,69 @@ def test_k3_matches_plain(dev):
     torch.testing.assert_close(betk, betp, atol=2e-4, rtol=0)
 
 
+def _bid_equal(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 1500, 2600), (13, 2048, 4096),
+                                   (1, 5, 1), (3, 300, 129)])
+def test_k3_bitwise_equals_plain_direct(dev, b, n, m):
+    # the same function in the same fp32 order with a correctly rounded
+    # root; the square-root filter skips only pairs that cannot change
+    # the top two, so every output is bitwise the plain version's
+    x1, x2 = _rand(b, b, n, 3, dev=dev), _rand(m, b, m, 3, dev=dev)
+    pr = _rand(n + m, b, m, dev=dev) * 0.1
+    want = bid_plain_direct(x1, x2, pr)
+    assert _bid_equal(bid(x1, x2, pr), want)
+    # the threads may take the rows in any order: the auction's spatial
+    # one, or a random permutation
+    perm = torch.argsort(_rand(n, b, n, dev=dev), dim=1).to(torch.int32)
+    for order in (spatial_order(x1), perm):
+        assert _bid_equal(bid(x1, x2, pr, order=order), want)
+    for threads in (32, 64, 256):
+        plan = bid_plan(b, n, m, threads)
+        assert _bid_equal(bid_launch(x1, x2, pr, None, plan), want)
+
+
+def _filter_edge_case(n=64, m=4096, tuned=8, seed=21):
+    """Rows 0..tuned-1 sit far from the cloud, each beside its own
+    columns (j % 16 == row), whose prices set the values to 2.5 or a
+    neighbouring float exactly: ties at the best, a second best equal to
+    the best, and pairs whose value sits within one ulp of `second`,
+    where the filter's bound is tight."""
+    r = np.random.default_rng(seed)
+    x1 = r.random((1, n, 3), dtype=np.float32)
+    x2 = r.random((1, m, 3), dtype=np.float32)
+    pr = (r.random((1, m)) * 0.1).astype(np.float32)
+    v = np.float32(2.5)
+    values = np.array([np.nextafter(v, np.float32(0)), v,
+                       np.nextafter(v, np.float32(4))], np.float32)
+    for row in range(tuned):
+        x1[0, row] = (5.0 + row, 5.0, 5.0)
+        cols = np.arange(row, m, 16)
+        x2[0, cols] = x1[0, row] + r.uniform(
+            -1e-3, 1e-3, (len(cols), 3)).astype(np.float32)
+        d = x1[0, row] - x2[0, cols]
+        d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+        a = np.float32(3) - np.sqrt(d2.astype(np.float64)).astype(np.float32)
+        pr[0, cols] = a - values[r.integers(0, 3, len(cols))]
+    return x1, x2, pr, values
+
+
+def test_k3_filter_edge_and_ties_at_the_best(dev):
+    x1, x2, pr, values = _filter_edge_case()
+    t = [torch.tensor(a, device=dev) for a in (x1, x2, pr)]
+    want = bid_plain_direct(*t)
+    # the construction: the tuned rows' best is the largest value, tied
+    assert (want[1][0, :8] == float(values[2])).all()
+    assert (want[2][0, :8] == float(values[2])).all()
+    assert _bid_equal(bid(*t), want)
+    assert _bid_equal(bid(*t, order=spatial_order(t[0])), want)
+    for threads in (32, 256):
+        plan = bid_plan(1, 64, 4096, threads)
+        assert _bid_equal(bid_launch(*t, None, plan), want)
+
+
 def test_launch_counters_count_kernel_launches_only(dev):
     x = _rand(7, 1, 64, 3)
     before = (_nn.launches, fps_batched.launches, bid.launches)
@@ -161,6 +309,13 @@ def test_launch_counters_count_kernel_launches_only(dev):
     torch.cuda.synchronize()
     assert (_nn.launches, fps_batched.launches, bid.launches) == \
         tuple(c + 1 for c in before)
+    # a split launch and its merge count once, per user-level call
+    x, y = _rand(8, 13, 16384, 3, dev=dev), _rand(9, 13, 16384, 3, dev=dev)
+    assert nn_plan(13, 16384, 16384)["splits"] > 1
+    n0 = _nn.launches
+    _nn(x, y)
+    torch.cuda.synchronize()
+    assert _nn.launches == n0 + 1
 
 
 def _tables(dev, r=3, n=2048, res=64, f=2, slots=6, seed=8):

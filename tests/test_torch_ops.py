@@ -9,13 +9,16 @@ import torch
 
 from genpc_tpu.ops import chamfer as jchamfer
 from genpc_tpu.ops.emd import _bid_phase
+from genpc_tpu.ops.emd_kernel import bid_pallas
 from genpc_tpu.ops.emd import emd_auction as jemd
 from genpc_tpu.ops.fps import _fps_indices_xla
 from genpc_tpu.ops.knn import knn as jknn
 from genpc_tpu.ops.outliers import statistical_outlier_mask as jmask
-from genpc_tpu_torch.ops.chamfer import _nn, chamfer_nn, nearest_neighbor
+from genpc_tpu_torch.ops.chamfer import (_nn, chamfer_nn, nearest_neighbor,
+                                         nn_plan)
 from genpc_tpu_torch.ops.emd import emd_auction
-from genpc_tpu_torch.ops.emd_kernel import bid
+from genpc_tpu_torch.ops.emd_kernel import (bid, bid_plain, bid_plain_direct,
+                                            bid_plan, spatial_order)
 from genpc_tpu_torch.ops.fps import farthest_point_sample, pad_repeat
 from genpc_tpu_torch.ops.fps_kernel import fps_batched, fps_plan
 from genpc_tpu_torch.ops.knn import knn
@@ -142,6 +145,119 @@ def test_bid_phase_matches_reference():
     assert (bt.numpy() == np.asarray(bj)).mean() >= 0.995
     np.testing.assert_allclose(bestt.numpy(), np.asarray(bestj), atol=2e-4)
     np.testing.assert_allclose(bett.numpy(), np.asarray(betj), atol=2e-4)
+
+
+#: K1 launch shapes of the registration pass (B, N, M): the metric, a
+#: one-cloud dedup, the symmetry sweep, the fine grid, ICP, the pose loss
+#: (both directions, 512 and 2,048 points), and two small ones
+PLAN_SHAPES = [(13, 16384, 16384), (1, 163840, 65536), (1, 65536, 65536),
+               (4056, 4096, 4096), (1521, 4096, 4096), (3250, 2048, 2048),
+               (143, 2048, 2048), (13, 2048, 2048), (52, 512, 512),
+               (52, 2048, 2048), (1, 10, 5), (3, 300, 4097)]
+#: shapes whose launch must fill the 132 SMs: the pose loss's and the
+#: dedups'
+FILL_SHAPES = {(1, 163840, 65536), (1, 65536, 65536), (52, 512, 512),
+               (52, 2048, 2048)}
+
+
+def _rows_covered(n, plan):
+    """How often each row of one batch is owned by a thread of the plan
+    (thread t of row tile k owns k * rows * threads + t + r * threads)."""
+    t, r = plan["threads"], plan["rows"]
+    tile = np.arange(plan["tiles"])[:, None, None] * (t * r)
+    rows = (tile + np.arange(t)[None, :, None]
+            + np.arange(r)[None, None, :] * t).ravel()
+    return np.bincount(rows[rows < n], minlength=n)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_nn_plan_covers_every_row_and_column_once(shape):
+    b, n, m = shape
+    plan = nn_plan(b, n, m)
+    assert (_rows_covered(n, plan) == 1).all()
+    # the splits tile M exactly, none empty, also when a split is forced
+    # (chunks round up to whole shared tiles, so 3 may become fewer)
+    forced = nn_plan(b, n, m, splits=3)
+    assert forced["splits"] <= 3
+    for p in (plan, forced):
+        starts = np.arange(p["splits"]) * p["chunk"]
+        ends = np.minimum(m, starts + p["chunk"])
+        assert starts[0] == 0 and ends[-1] == m and (ends > starts).all()
+        assert (starts[1:] == ends[:-1]).all()
+        assert p["chunk"] % (2 * p["threads"]) == 0
+    # CUDA limits: grid.x, block size, and the kernel's templates
+    assert plan["blocks"] == b * plan["splits"] * plan["tiles"] < 2 ** 31
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 256
+    assert plan["rows"] in (2, 4)
+    if shape in FILL_SHAPES:
+        assert plan["blocks"] >= 132
+
+
+@pytest.mark.parametrize("shape", [(13, 16384, 16384), (2, 300, 2100),
+                                   (1, 1, 7), (40000, 64, 64)])
+def test_bid_plan_covers_every_row_once(shape):
+    b, n, m = shape
+    plan = bid_plan(b, n, m)
+    assert (_rows_covered(n, plan) == 1).all()
+    assert plan["blocks"] == b * plan["tiles"] < 2 ** 31
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 256
+    assert (plan["rows"], plan["group"]) == (2, 4)
+    if b * n >= 132 * 128 * plan["rows"]:
+        assert plan["blocks"] >= 132
+    with pytest.raises(ValueError):
+        bid_plan(b, n, m, threads=48)
+
+
+def test_spatial_order_is_a_permutation_along_a_z_curve():
+    # each batch's rows once; consecutive rows are near in space
+    r = np.random.default_rng(9)
+    x = _t(r.random((2, 4096, 3)).astype(np.float32))
+    order = spatial_order(x)
+    assert order.dtype == torch.int32
+    for b in range(2):
+        assert torch.equal(order[b].sort().values, torch.arange(4096,
+                                                                dtype=torch.int32))
+    y = torch.gather(x, 1, order.long()[..., None].expand(-1, -1, 3))
+    step = (y[:, 1:] - y[:, :-1]).norm(dim=-1).mean()
+    assert step < 0.25 * (x[:, 1:] - x[:, :-1]).norm(dim=-1).mean()
+    # the first eight in z order sit in one corner octant
+    assert (x[0, order[0, :8].long()] < 0.5).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_bid_plain_direct_within_contract_of_bid_plain(seed):
+    # direct distance against the reference's expansion: the kernel
+    # contract, >= 99.5 % identical bids, values within 2e-4
+    r = np.random.default_rng(seed)
+    x1 = _t(r.random((2, 700, 3)).astype(np.float32))
+    x2 = _t(r.random((2, 900, 3)).astype(np.float32))
+    pr = _t((r.random((2, 900)) * 0.1).astype(np.float32))
+    bd, bestd, betd = bid_plain_direct(x1, x2, pr)
+    bp, bestp, betp = bid_plain(x1, x2, pr)
+    assert (bd == bp).float().mean().item() >= 0.995
+    torch.testing.assert_close(bestd, bestp, atol=2e-4, rtol=0)
+    torch.testing.assert_close(betd, betp, atol=2e-4, rtol=0)
+
+
+def test_bid_plain_direct_matches_pallas_interpret():
+    # the reference's own kernel in interpret mode, across a 2,048-column
+    # chunk: the same direct form, but XLA on the CPU may contract the
+    # squares into FMAs, so near-tied bids may differ (>= 99.5 % equal)
+    # and values agree within 1e-6
+    from jax.experimental.pallas import tpu as pltpu
+    r = np.random.default_rng(12)
+    x1 = r.random((2, 300, 3)).astype(np.float32)
+    x2 = r.random((2, 2100, 3)).astype(np.float32)
+    pr = (r.random((2, 2100)) * 0.1).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        bj, bestj, betj = bid_pallas(jnp.asarray(x1), jnp.asarray(x2),
+                                     jnp.asarray(pr))
+    bt, bestt, bett = bid_plain_direct(_t(x1), _t(x2), _t(pr))
+    assert (bt.numpy() == np.asarray(bj)).mean() >= 0.995
+    np.testing.assert_allclose(bestt.numpy(), np.asarray(bestj), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(bett.numpy(), np.asarray(betj), atol=1e-6,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("seed", [0, 4])
