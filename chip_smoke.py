@@ -14,9 +14,14 @@ Phases (any failure exits non-zero; nothing is caught):
      bit-equal, argmins the first index, and the count of tied minima;
      K2 at the metric's and at the fusion's, with its cluster size and
      how many clusters fit at once; K3 bitwise equal to
-     bid_plain_direct and within the reference contract of bid_plain):
+     bid_plain_direct and within the reference contract of bid_plain;
+     K4 and K5 bit-equal at both pose resolutions on the table as
+     _build_table returns it, on its contiguous copy and on a table with
+     every entry present, timed on the contiguous one):
      parity, the kernel's, the plain version's and (where one exists) a
-     library call's times (CUDA events, warm-up then the median of 1-5),
+     library call's times (CUDA events, warm-up then the median of 1-5,
+     each run enqueued behind a device sleep so that the host's enqueue
+     stays outside the interval),
      and the least time the card could take for the same work (bytes at
      3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is larger: the
      H100 SXM data sheet);
@@ -27,13 +32,14 @@ Phases (any failure exits non-zero; nothing is caught):
      sweeps), each a warm-up and a timed pass with the launch count of
      every kernel, the counts set to 0 just before the timed pass and
      read just after (K2 must launch FPS_LAUNCHES times: one fusion
-     launch over all objects), and a histogram of the K1 and K3 launches
-     of the timed pass by shape (B, N, M): launches and summed time
-     (CUDA events around each call).  The registration path's two passes
-     must give bit-identical per-object CD.
+     launch over all objects), and a histogram of the K1, K3, K4 and K5
+     launches of the timed pass by shape (K1/K3 (B, N, M), K4 (R, S,
+     res), K5 (R, N, res)): launches and summed time (CUDA events around
+     each call).  The registration path's two passes must give
+     bit-identical per-object CD.
      --profile adds one torch.profiler pass of the registration path and
-     prints device time by kernel (kernel rows only), and K1's and K3's
-     sums.
+     prints device time by kernel (kernel rows only), and K1's, K3's,
+     K4's and K5's sums.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no
@@ -56,6 +62,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+SLEEP_CYCLES = 4_000_000       # ~2 ms at the H100's 1.98 GHz boost clock
 
 
 def log(msg: str) -> None:
@@ -63,7 +70,13 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
-    """Median device time of fn() in ms: one warm-up, then reps timed runs."""
+    """Median device time of fn() in ms: one warm-up, then reps timed runs.
+    Each run is enqueued behind a device sleep of about 2 ms, so that the
+    host's enqueue of fn (a wrapper's checks and allocations take tens of
+    microseconds) finishes before the card reaches the start event: the
+    interval holds the device's work, and host time only where fn makes
+    the card wait for the host again (the many launches of a plain
+    version)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -71,6 +84,7 @@ def cuda_ms(fn, reps: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -379,7 +393,8 @@ def check_k3(dev):
 def _pose_tables(dev, res, n_pts, seed=3):
     """Slot tables of the pose path: 13 synthetic objects' completions
     (voxel 0.02, resampled to n_pts) under the 4 start rotations about y,
-    R = 52 renders, built by the port's _build_table."""
+    R = 52 renders, built by the port's _build_table: (table, slot_orig,
+    build order, points kept)."""
     import numpy as np
     import torch
     from genpc_tpu_torch.geometry.transforms import rotation_6d_to_matrix
@@ -404,73 +419,141 @@ def _pose_tables(dev, res, n_pts, seed=3):
     col = col[:, None].expand(13, 4, n_pts, 3).reshape(52, n_pts, 3)
     attrs = _project_attrs(pts, 0.02 * (2048 / n_pts) ** 0.5,
                            RenderCamera.default(res), 2)
-    table, keep, _ = _build_table(*attrs[:4], col, attrs[4], res, 2, 6)
-    return table, int(keep.sum())
+    # a checkout before the build order returned three values
+    table, keep, slot_orig, *order = _build_table(*attrs[:4], col, attrs[4],
+                                                  res, 2, 6)
+    return table, slot_orig, (order or [None])[0], int(keep.sum())
+
+
+def _full_table(dev, res, seed=5, r=52, f=2, slots=6):
+    """A table with every entry of every slot present: centres within
+    2f + 1 pixels of the entry's own, random depths, sigma2 in [0.05,
+    2.05) and colours; slot_orig names every interior entry once."""
+    import numpy as np
+    import torch
+    g = np.random.default_rng(seed)
+    h = res + 2 * f
+    t = g.random((r, slots, 7, h, h), dtype=np.float32)
+    yy, xx = np.meshgrid(np.arange(h) - f, np.arange(h) - f, indexing="ij")
+    t[:, :, 0] = xx + (t[:, :, 0] - 0.5) * (4 * f + 2)
+    t[:, :, 1] = yy + (t[:, :, 1] - 0.5) * (4 * f + 2)
+    t[:, :, 3] = 0.05 + 2.0 * t[:, :, 3]
+    so = torch.arange(slots * res * res, device=dev)
+    return torch.tensor(t, device=dev), so.expand(r, -1).contiguous()
+
+
+def k5_bound(slot_orig, kept, res, f=2, slots=6):
+    """K5's least work: each point's slot_orig read, each kept entry's 7
+    channels read, 7 gradients a point written, and the 5 cotangent planes
+    (g_acc, g_wacc, dmax) read at the pixels within f of a kept entry's
+    pixel; ~30 flops a visit of each of the (2f+1)^2 offsets."""
+    import torch
+    r, n = slot_orig.shape
+    npix = res * res
+    occ = torch.zeros((r, slots * npix + 1), device=slot_orig.device)
+    occ.scatter_(1, slot_orig.clamp_max(slots * npix), 1.0)
+    occ = occ[:, :-1].reshape(r, slots, res, res).amax(1, keepdim=True)
+    near = torch.nn.functional.max_pool2d(occ, 2 * f + 1, 1, f)
+    n_bytes = r * n * (8 + 7 * 4) + kept * 7 * 4 + int(near.sum()) * 5 * 4
+    return bound(n_bytes, 30.0 * (2 * f + 1) ** 2 * kept)
 
 
 def check_k4_k5(dev, shapes=((224, 2048), (112, 512)), seed=4):
-    """K4 (splat forward) and K5 (splat backward) against their plain
-    versions at the pose path's shapes (R = 52, S = 6, f = 2, gamma 1e-2):
-    bit-equal, and bitwise repeatable."""
+    """K4 (splat forward) and K5 (splat backward, per point) against their
+    plain versions at the pose path's shapes (R = 52, S = 6, f = 2, gamma
+    1e-2): bit-equal on the table _build_table returns (a view with render
+    stride size + 1), on its contiguous copy and on a table with every
+    entry present, and bitwise repeatable.  Times on the contiguous
+    table, so that no copy is inside them.  Returns the main shape's
+    numbers and prints both."""
     import numpy as np
     import torch
     from genpc_tpu_torch.render.splat_kernel import (
-        assemble, assemble_bwd, assemble_bwd_plain, assemble_plain)
+        assemble, assemble_bwd_points, assemble_bwd_points_plain,
+        assemble_plain, splat_plan)
     out = {}
     g = np.random.default_rng(seed)
+
+    def k4(t):
+        return assemble(t, res, 2, 1e-2)
+
+    def k5(t, so, dm, order=None):
+        return assemble_bwd_points(t, so, cots, dm, res, 2, 6, 1e-2, order)
+
+    def k5_plain(t, so, dm):
+        return assemble_bwd_points_plain(t, so, cots, dm, res, 2, 6, 1e-2)
+
+    def parity(name, t, so, order=None):
+        (acc, wacc), dmax = k4(t)
+        (acc_p, wacc_p), dmax_p = assemble_plain(t, res, 2, 1e-2)
+        (acc2, wacc2), dmax2 = k4(t)
+        d = k5(t, so, dmax, order)
+        d_p = k5_plain(t, so, dmax)
+        d2 = k5(t, so, dmax, order)
+        d_caller = k5(t, so, dmax)
+        torch.cuda.synchronize()
+        err4 = max((acc - acc_p).abs().max().item(),
+                   (wacc - wacc_p).abs().max().item(),
+                   (dmax - dmax_p).abs().max().item())
+        err5 = (d - d_p).abs().max().item()
+        rep = (torch.equal(acc, acc2) and torch.equal(wacc, wacc2)
+               and torch.equal(dmax, dmax2) and torch.equal(d, d2)
+               and torch.equal(d, d_caller))
+        log(f"K4/K5 res {res} {name}: K4 max err vs plain {err4:.3e}, K5 "
+            f"{err5:.3e}; bitwise repeat (K5 also in the caller's point "
+            f"order) {rep}")
+        # the twins sum in the kernels' order with the same roundings:
+        # the contract is bit-equality
+        if err4 != 0.0 or err5 != 0.0 or not rep:
+            fail(f"K4/K5 res {res} {name}: not bit-equal to the plain "
+                 f"versions or not repeatable")
+        return dmax, err4, err5
+
     for res, n_pts in shapes:
-        table, kept = _pose_tables(dev, res, n_pts)
+        table, slot_orig, order, kept = _pose_tables(dev, res, n_pts)
         r = table.shape[0]
         cots = (torch.tensor(g.normal(size=(r, 3, res, res)),
                              dtype=torch.float32, device=dev),
                 torch.tensor(g.normal(size=(r, res, res)),
                              dtype=torch.float32, device=dev))
-        (acc, wacc), dmax = assemble(table, res, 2, 1e-2)
-        (acc_p, wacc_p), dmax_p = assemble_plain(table, res, 2, 1e-2)
-        (acc2, wacc2), dmax2 = assemble(table, res, 2, 1e-2)
-        d_t = assemble_bwd(table, cots, dmax, res, 2, 1e-2)
-        d_p = assemble_bwd_plain(table, cots, dmax, res, 2, 1e-2)
-        d_t2 = assemble_bwd(table, cots, dmax, res, 2, 1e-2)
-        torch.cuda.synchronize()
-        err4 = max((acc - acc_p).abs().max().item(),
-                   (wacc - wacc_p).abs().max().item(),
-                   (dmax - dmax_p).abs().max().item())
-        err5 = (d_t - d_p).abs().max().item()
-        rep4 = (torch.equal(acc, acc2) and torch.equal(wacc, wacc2)
-                and torch.equal(dmax, dmax2))
-        rep5 = torch.equal(d_t, d_t2)
+        plan = splat_plan(res, 2)
         log(f"K4/K5 res {res}, R {r}, {kept} of {r * n_pts} points in the "
-            f"table: K4 max err vs plain {err4:.3e}, K5 {err5:.3e}; "
-            f"bitwise repeat K4 {rep4}, K5 {rep5}")
-        # the twins sum in the kernels' order with the same roundings:
-        # the contract is bit-equality
-        if err4 != 0.0 or err5 != 0.0 or not (rep4 and rep5):
-            fail(f"K4/K5 res {res}: not bit-equal to the plain versions or "
-                 f"not repeatable")
-        ms4 = cuda_ms(lambda: assemble(table, res, 2, 1e-2))
-        plain4 = cuda_ms(lambda: assemble_plain(table, res, 2, 1e-2))
-        ms5 = cuda_ms(lambda: assemble_bwd(table, cots, dmax, res, 2, 1e-2))
-        plain5 = cuda_ms(lambda: assemble_bwd_plain(table, cots, dmax, res,
-                                                    2, 1e-2))
-        # operations: every present entry is visited from its 25 window
-        # pixels, ~30 flops per visit (both directions).  Bytes: what this
-        # table needs, the sigma2 plane of every slot (it marks presence),
-        # the other 6 channels of the present entries only, each once;
-        # the outputs (K5: the dense gradient table) written once, and K5
-        # reads the padded cotangent buffer [R,5,res+2f,res+2f] once
-        flops = 30.0 * 25 * kept
-        needed = nbytes(table) // 7 + kept * 6 * 4
-        b4 = bound(needed + nbytes(acc, wacc, dmax), flops)
-        b5 = bound(needed + nbytes(d_t) + r * 5 * (res + 4) ** 2 * 4, flops)
-        log(f"K4 time res {res}: kernel {ms4:.3f} ms, plain {plain4:.3f} "
-            f"ms, bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}); K5: "
-            f"kernel {ms5:.3f} ms, plain {plain5:.3f} ms, bound "
-            f"{b5['bound_ms']:.4f} ms ({b5['bound_by']}); no library call")
+            f"table; K4 plan: tiles {plan['tile_w']} x {plan['tile_h']}, "
+            f"{plan['blocks']} a render, {plan['smem']} B of shared memory")
+        dense = table.contiguous()
+        dmax, err4, err5 = parity("strided view", table, slot_orig, order)
+        parity("contiguous", dense, slot_orig, order)
+        full, full_so = _full_table(dev, res)
+        dmax_full = parity("every entry present", full, full_so)[0]
+        ms4 = cuda_ms(lambda: k4(dense))
+        plain4 = cuda_ms(lambda: assemble_plain(dense, res, 2, 1e-2))
+        ms5 = cuda_ms(lambda: k5(dense, slot_orig, dmax, order))
+        caller5 = cuda_ms(lambda: k5(dense, slot_orig, dmax))
+        plain5 = cuda_ms(lambda: k5_plain(dense, slot_orig, dmax))
+        full4 = cuda_ms(lambda: k4(full))
+        full5 = cuda_ms(lambda: k5(full, full_so, dmax_full))
+        # K4: operations, every present entry visited from its 25 window
+        # pixels, ~30 flops per visit; bytes, what this table needs: the
+        # sigma2 plane of every slot (it marks presence), the other 6
+        # channels of the present entries only, each once, and the
+        # outputs written once.  K5: k5_bound, per point
+        (acc, wacc), _ = k4(dense)
+        b4 = bound(nbytes(dense) // 7 + kept * 6 * 4
+                   + nbytes(acc, wacc, dmax), 30.0 * 25 * kept)
+        b5 = k5_bound(slot_orig, kept, res)
+        log(f"K4 time res {res} (contiguous table): kernel {ms4:.4f} ms, "
+            f"plain {plain4:.3f} ms, bound {b4['bound_ms']:.4f} ms "
+            f"({b4['bound_by']}); K5 (per point): kernel {ms5:.4f} ms "
+            f"(points in the caller's order {caller5:.4f} ms), "
+            f"plain {plain5:.3f} ms, bound {b5['bound_ms']:.4f} ms "
+            f"({b5['bound_by']}, per-point bytes); no library call for "
+            f"either; every entry present: K4 {full4:.4f} ms, K5 "
+            f"{full5:.4f} ms ({full_so.shape[1]} points a render)")
         out[res] = ({"max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
                      "library_ms": None, **b4},
                     {"max_abs_err": err5, "ms": ms5, "plain_ms": plain5,
                      "library_ms": None, **b5})
-        del table, cots, d_t, d_p, d_t2
+        del table, dense, full, full_so, cots, order
         torch.cuda.empty_cache()
     main = out[shapes[0][0]]
     return {"splat_fwd": main[0], "splat_bwd": main[1]}
@@ -486,7 +569,8 @@ KERNELS = [
      "genpc_tpu_torch/csrc/emd_bid.cu", "genpc_tpu/ops/emd_kernel.py:48"),
     ("splat_fwd", ("genpc_tpu_torch.render.splat_kernel", "assemble"),
      "genpc_tpu_torch/csrc/splat.cu", "genpc_tpu/render/splat_kernel.py:77"),
-    ("splat_bwd", ("genpc_tpu_torch.render.splat_kernel", "assemble_bwd"),
+    ("splat_bwd", ("genpc_tpu_torch.render.splat_kernel",
+                   "assemble_bwd_points"),
      "genpc_tpu_torch/csrc/splat.cu",
      "genpc_tpu/render/splat_kernel.py:201"),
 ]
@@ -705,8 +789,10 @@ def drive(path: str, root: str, flags, counters) -> dict:
             "timings": timings, "repeat": repeat}
 
 
-#: wrappers whose launches the timed passes record by shape
-TRACED = ("chamfer_nn", "emd_bid")
+#: wrappers whose launches the timed passes record by shape, and what
+#: the shape holds
+TRACED = {"chamfer_nn": "(B, N, M)", "emd_bid": "(B, N, M)",
+          "splat_fwd": "(R, S, res)", "splat_bwd": "(R, N, res)"}
 
 
 def launch_histogram(path: str, traces: dict) -> None:
@@ -720,8 +806,8 @@ def launch_histogram(path: str, traces: dict) -> None:
             n, ms = rows.get(shape, (0, 0.0))
             rows[shape] = (n + 1, ms + start.elapsed_time(end))
         total = sum(ms for _, ms in rows.values())
-        log(f"{path}: {name} launch shapes (B, N, M): {len(trace)} launches, "
-            f"{total:.3f} ms")
+        log(f"{path}: {name} launch shapes {TRACED[name]}: {len(trace)} "
+            f"launches, {total:.3f} ms")
         for shape, (n, ms) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
             log(f"  {str(shape):24s} {n:5d}x {ms:10.3f} ms "
                 f"({ms / n:.4f} ms each)")
@@ -754,7 +840,9 @@ def profile_pass(root: str, flags) -> None:
     for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:25]:
         log(f"  {ms:10.3f} ms {n:7d}x  {name[:100]}")
     for kernel, names in (("K1", ("nn_kernel", "nn_merge_kernel")),
-                          ("K3", ("bid_kernel",))):
+                          ("K3", ("bid_kernel",)),
+                          ("K4", ("splat_fwd_kernel",)),
+                          ("K5", ("splat_bwd_points_kernel",))):
         pat = re.compile(r"(?<![A-Za-z_])(%s)\b" % "|".join(names))
         hits = [v for k, v in rows.items() if pat.search(k)]
         log(f"profile: {kernel} ({', '.join(names)}) "

@@ -35,8 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C entry -> argtypes (pointers and the stream as void*, sizes as int,
-#: scalars as float)
+#: strides in elements as long long, scalars as float)
 _SIGNATURES = {
     # x, y, y_index, dist, idx, dpart, ipart, B, N, M, rows, threads,
     # splits, chunk, stream
@@ -49,10 +50,14 @@ _SIGNATURES = {
     # threads, stream
     "genpc_emd_bid": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P],
-    # table, acc, wacc, dmax, B, S, res, f, gamma, stream
-    "genpc_splat_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # table, cot, out, B, S, res, f, gamma, stream
-    "genpc_splat_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # table, rstride, acc, wacc, dmax, B, S, res, f, gamma, tiles_x,
+    # tiles, smem, stream
+    "genpc_splat_fwd": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                        _P],
+    # table, rstride, slot_orig, order, g_acc, its 4 strides, g_wacc,
+    # dmax, out, B, N, S, res, f, gamma, stream
+    "genpc_splat_bwd_points": [_P, _L, _P, _P, _P, _L, _L, _L, _L, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -8,8 +8,8 @@ attribute record into the next free slot of its centre pixel
 (``_build_table``: a stable sort by pixel, ranks by ``cummax``, a
 scatter whose real targets are unique).  The image is then assembled
 from the table by kernel K4 (``splat_kernel.assemble``); the gradient
-runs through kernel K5 (``splat_kernel.assemble_bwd``), whose per-entry
-gradient table each point reads back at its slot (``_SlotsRender``).
+runs through kernel K5 (``splat_kernel.assemble_bwd_points``), which
+gives each point the gradients of its own entry (``_SlotsRender``).
 Every sum has a fixed order, so a render and its gradient repeat
 bitwise.
 
@@ -26,7 +26,8 @@ from typing import Tuple
 
 import torch
 
-from genpc_tpu_torch.render.splat_kernel import CH, assemble, assemble_bwd
+from genpc_tpu_torch.render.splat_kernel import (CH, assemble,
+                                                 assemble_bwd_points)
 
 
 @dataclass
@@ -85,12 +86,14 @@ def _build_table(px, py, dn, sigma2, cols, in_front, res: int, f: int,
     """Per-pixel slot tables of R renders.
 
     px, py, dn, sigma2, in_front [R,N]; cols [R,N,3].  Returns (table
-    [R,S,CH,res+2f,res+2f], keep [R,N] bool, slot_orig [R,N] int64): a
-    point's record sits in its centre pixel's next free slot (stable-sort
-    rank), out-of-image centres clamped for storage; keep marks points in
-    the table (in front, rank < slots); slot_orig is each point's flat
-    slot-major position rank·res² + pixel in the original point order,
-    slots·res² for dropped points."""
+    [R,S,CH,res+2f,res+2f], keep [R,N] bool, slot_orig [R,N] int64, order
+    [R,N] int64): a point's record sits in its centre pixel's next free
+    slot (stable-sort rank), out-of-image centres clamped for storage;
+    keep marks points in the table (in front, rank < slots); slot_orig is
+    each point's flat slot-major position rank·res² + pixel in the
+    original point order, slots·res² for dropped points; order is the
+    points sorted by pixel (the stable sort).  The first three are the
+    reference's outputs."""
     r, n = px.shape
     dev = px.device
     npix = res * res
@@ -107,7 +110,10 @@ def _build_table(px, py, dn, sigma2, cols, in_front, res: int, f: int,
     valid = (cs < npix) & (rank < slots)
     slot = torch.where(valid, rank * npix + cs, slots * npix)
     # scatter straight into the padded [S,CH,H,W] layout; dropped points
-    # all write zeros into one trailing sentinel entry
+    # all write zeros into one trailing sentinel entry.  The table is the
+    # view of the buffer without it (render stride size + 1), which the
+    # kernels read in place; a sentinel in the zero border instead would
+    # need f > 0
     sy, sx = torch.div(cs, res, rounding_mode="floor"), cs % res
     base = rank * (CH * hp * hp) + (sy + f) * hp + (sx + f)     # [R,N]
     chan = torch.arange(CH, device=dev)[None, :, None] * (hp * hp)
@@ -122,47 +128,40 @@ def _build_table(px, py, dn, sigma2, cols, in_front, res: int, f: int,
     table = table[:, :size].reshape(r, slots, CH, hp, hp)
     keep = torch.zeros_like(valid).scatter(1, order, valid)
     slot_orig = torch.zeros_like(slot).scatter(1, order, slot)
-    return table, keep, slot_orig
+    return table, keep, slot_orig, order
 
 
 class _SlotsRender(torch.autograd.Function):
     """attrs [R,N] (+ cols [R,N,3]) -> (acc [R,3,r,r], wacc [R,r,r]).
 
-    Forward: ``_build_table`` then K4.  Backward: K5 gives the gradient
-    table; each point gathers its 7 gradients at ``slot_orig`` (a zero for
-    dropped points).  ``in_front`` gets no gradient."""
+    Forward: ``_build_table`` then K4, on the table as the view it is.
+    Backward: K5 gives each point the 7 gradients of its own entry, found
+    at ``slot_orig`` (zeros for dropped points), taking the points in the
+    table's build order.  ``in_front`` gets no gradient."""
 
     @staticmethod
     def forward(ctx, px, py, dn, sigma2, cols, in_front, res, f, slots,
                 gamma):
-        table, _, slot_orig = _build_table(px, py, dn, sigma2, cols,
-                                           in_front, res, f, slots)
+        table, _, slot_orig, order = _build_table(px, py, dn, sigma2, cols,
+                                                  in_front, res, f, slots)
         (acc, wacc), dmax = assemble(table, res, f, gamma)
-        ctx.save_for_backward(table, slot_orig, dmax)
+        ctx.save_for_backward(table, slot_orig, order, dmax)
         ctx.consts = (res, f, slots, gamma)
         return acc, wacc
 
     @staticmethod
     def backward(ctx, g_acc, g_wacc):
-        table, slot_orig, dmax = ctx.saved_tensors
+        table, slot_orig, order, dmax = ctx.saved_tensors
         res, f, slots, gamma = ctx.consts
-        npix = res * res
         r = table.shape[0]
         if g_acc is None:
             g_acc = torch.zeros((r, 3, res, res), device=table.device)
         if g_wacc is None:
             g_wacc = torch.zeros((r, res, res), device=table.device)
-        d_t = assemble_bwd(table, (g_acc, g_wacc), dmax, res, f, gamma)
-        # entry (rank, pix) of channel c sits at (rank·CH + c)·npix + pix
-        valid = slot_orig < slots * npix
-        rank = torch.div(slot_orig, npix, rounding_mode="floor")
-        pos = torch.where(valid, rank * (CH * npix) + slot_orig % npix, 0)
-        flat = d_t.reshape(r, -1)
-        grads = [torch.where(valid, torch.gather(flat, 1, pos + c * npix),
-                             0.0) for c in range(CH)]
-        d_cols = torch.stack(grads[4:], dim=-1)
-        return (grads[0], grads[1], grads[2], grads[3], d_cols, None,
-                None, None, None, None)
+        g = assemble_bwd_points(table, slot_orig, (g_acc, g_wacc), dmax,
+                                res, f, slots, gamma, order)   # [R,7,N]
+        return (g[:, 0], g[:, 1], g[:, 2], g[:, 3], g[:, 4:].transpose(1, 2),
+                None, None, None, None, None)
 
 
 def render_points(points: torch.Tensor, colors: torch.Tensor, radius,

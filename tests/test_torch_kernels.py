@@ -22,7 +22,8 @@ from genpc_tpu_torch.ops.fps_kernel import (fps_batched, fps_batched_plain,
 from genpc_tpu_torch.render.point_renderer import (
     RenderCamera, _build_table, _project_attrs)
 from genpc_tpu_torch.render.splat_kernel import (
-    assemble, assemble_bwd, assemble_bwd_plain, assemble_plain)
+    CH, assemble, assemble_bwd_points, assemble_bwd_points_plain,
+    assemble_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -318,20 +319,56 @@ def test_launch_counters_count_kernel_launches_only(dev):
     assert _nn.launches == n0 + 1
 
 
-def _tables(dev, r=3, n=2048, res=64, f=2, slots=6, seed=8):
-    """Slot tables of r seeded clouds, built by the port's _build_table."""
+def _tables(dev, r=3, n=2048, res=64, f=2, slots=6, seed=8, spread=0.3,
+            behind=0):
+    """Slot tables of r seeded clouds, built by the port's _build_table
+    (the view it returns: render stride size + 1), their slot_orig,
+    seeded cotangents and the build order; the first `behind` points of
+    each cloud sit behind the camera."""
     g = np.random.default_rng(seed)
-    pts = torch.tensor(g.normal(size=(r, n, 3)) * 0.3, dtype=torch.float32,
-                       device=dev)
+    pts = g.normal(size=(r, n, 3)) * spread
+    pts[:, :behind, 2] = 3.5
+    pts = torch.tensor(pts, dtype=torch.float32, device=dev)
     cols = torch.tensor(g.random((r, n, 3)), dtype=torch.float32, device=dev)
     px, py, dn, s2, inf = _project_attrs(pts, 0.02, RenderCamera.default(res),
                                          f)
-    table, _, _ = _build_table(px, py, dn, s2, cols, inf, res, f, slots)
+    table, _, slot_orig, order = _build_table(px, py, dn, s2, cols, inf,
+                                              res, f, slots)
     cots = (torch.tensor(g.normal(size=(r, 3, res, res)), dtype=torch.float32,
                          device=dev),
             torch.tensor(g.normal(size=(r, res, res)), dtype=torch.float32,
                          device=dev))
-    return table, cots
+    return table, slot_orig, cots, order
+
+
+def _check_k4(table, res, f):
+    """K4 bit-equal to its twin and repeating bitwise; returns dmax."""
+    (acc, wacc), dmax = assemble(table, res, f, 1e-2)
+    (acc_p, wacc_p), dmax_p = assemble_plain(table, res, f, 1e-2)
+    assert torch.equal(dmax, dmax_p)
+    assert torch.equal(acc, acc_p) and torch.equal(wacc, wacc_p)
+    (acc2, wacc2), dmax2 = assemble(table, res, f, 1e-2)
+    assert torch.equal(acc, acc2) and torch.equal(wacc, wacc2) and \
+        torch.equal(dmax, dmax2)
+    return dmax
+
+
+def _check_k5(table, slot_orig, cots, dmax, res, f, order=None, slots=6):
+    """K5 bit-equal to its twin, repeating bitwise, the same with the
+    points in the caller's order and in `order`, zeros for dropped
+    points."""
+    g = assemble_bwd_points(table, slot_orig, cots, dmax, res, f, slots,
+                            1e-2, order)
+    assert torch.equal(g, assemble_bwd_points_plain(table, slot_orig, cots,
+                                                    dmax, res, f, slots,
+                                                    1e-2))
+    assert torch.equal(g, assemble_bwd_points(table, slot_orig, cots, dmax,
+                                              res, f, slots, 1e-2, order))
+    assert torch.equal(g, assemble_bwd_points(table, slot_orig, cots, dmax,
+                                              res, f, slots, 1e-2))
+    dropped = slot_orig >= slots * res * res
+    assert (g.transpose(1, 2)[dropped] == 0).all()
+    return g
 
 
 @pytest.mark.parametrize("res", [64, 224])
@@ -339,17 +376,92 @@ def test_k4_k5_equal_plain_and_repeat(dev, res):
     # the twins sum in the kernels' order with one rounding per operation
     # and the same expf: bit-equal; every output written by one thread:
     # the same bits from run to run
-    table, cots = _tables(dev, res=res)
-    (acc, wacc), dmax = assemble(table, res, 2, 1e-2)
-    (acc_p, wacc_p), dmax_p = assemble_plain(table, res, 2, 1e-2)
-    assert torch.equal(dmax, dmax_p)
-    assert torch.equal(acc, acc_p) and torch.equal(wacc, wacc_p)
-    (acc2, wacc2), dmax2 = assemble(table, res, 2, 1e-2)
-    assert torch.equal(acc, acc2) and torch.equal(wacc, wacc2)
-    d_t = assemble_bwd(table, cots, dmax, res, 2, 1e-2)
-    assert torch.equal(d_t, assemble_bwd_plain(table, cots, dmax, res, 2,
-                                               1e-2))
-    assert torch.equal(d_t, assemble_bwd(table, cots, dmax, res, 2, 1e-2))
+    table, slot_orig, cots, order = _tables(dev, res=res, behind=7)
+    assert not table.is_contiguous()
+    dmax = _check_k4(table, res, 2)
+    g = _check_k5(table, slot_orig, cots, dmax, res, 2, order)
+    assert (slot_orig >= 6 * res * res).any() and g.abs().sum() > 0
+    # g_acc at other strides (channels last, as autograd may hand it on)
+    g_cl = cots[0].permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    assert torch.equal(g, assemble_bwd_points(table, slot_orig,
+                                              (g_cl, cots[1]), dmax, res,
+                                              2, 6, 1e-2))
+
+
+@pytest.mark.parametrize("res,n", [(224, 2048), (112, 512)])
+def test_k4_k5_pose_shapes_strided_and_contiguous(dev, res, n):
+    # R = 52 renders at the pose path's shapes, dense enough that slots
+    # overflow, some points behind the camera; the view _build_table
+    # returns and its contiguous copy give the same bits
+    table, slot_orig, cots, order = _tables(dev, r=52, n=n, res=res,
+                                            spread=0.08, behind=5)
+    dmax = _check_k4(table, res, 2)
+    g = _check_k5(table, slot_orig, cots, dmax, res, 2, order)
+    dense = table.contiguous()
+    assert dense.stride(0) != table.stride(0)
+    assert torch.equal(dmax, _check_k4(dense, res, 2))
+    assert torch.equal(g, _check_k5(dense, slot_orig, cots, dmax, res, 2,
+                                    order))
+    assert (slot_orig < 6 * res * res).sum() < slot_orig.numel()
+
+
+def _filled_table(dev, r, res, f, seed=12, slots=6):
+    """A table with every entry of every slot present (the border too):
+    centres within 2f + 1 pixels of each entry's own, random depths,
+    sigma2 and colours; slot_orig names every interior entry once, then
+    three dropped points."""
+    g = np.random.default_rng(seed)
+    h = res + 2 * f
+    t = g.random((r, slots, CH, h, h)).astype(np.float32)
+    yy, xx = np.meshgrid(np.arange(h) - f, np.arange(h) - f, indexing="ij")
+    t[:, :, 0] = xx + (t[:, :, 0] - 0.5) * (4 * f + 2)
+    t[:, :, 1] = yy + (t[:, :, 1] - 0.5) * (4 * f + 2)
+    t[:, :, 3] = 0.05 + 2.0 * t[:, :, 3]
+    npix = res * res
+    so = np.concatenate([np.arange(slots * npix), [slots * npix] * 3])
+    slot_orig = torch.tensor(np.broadcast_to(so, (r, so.size)).copy(),
+                             device=dev)
+    cots = (torch.tensor(g.normal(size=(r, 3, res, res)), dtype=torch.float32,
+                         device=dev),
+            torch.tensor(g.normal(size=(r, res, res)), dtype=torch.float32,
+                         device=dev))
+    return torch.tensor(t, device=dev), slot_orig, cots
+
+
+@pytest.mark.parametrize("r,res,f", [(52, 224, 2), (52, 112, 2), (3, 50, 2),
+                                     (3, 64, 1), (3, 64, 3)])
+def test_k4_k5_full_table(dev, r, res, f):
+    # every window entry present: K4 walks all (2f+1)^2 bits of every word,
+    # K5 every entry; res 50 leaves a ragged tile edge
+    table, slot_orig, cots = _filled_table(dev, r, res, f)
+    dmax = _check_k4(table, res, f)
+    assert (dmax > -1).all()
+    _check_k5(table, slot_orig, cots, dmax, res, f)
+
+
+@pytest.mark.parametrize("res,f", [(224, 2), (50, 1), (50, 3)])
+def test_k4_k5_empty_table(dev, res, f):
+    # no entry present: every tile ends early with zeros and dmax = -1
+    table = torch.zeros((4, 6, CH, res + 2 * f, res + 2 * f), device=dev)
+    slot_orig = torch.full((4, 9), 6 * res * res, device=dev)
+    cots = (torch.ones((4, 3, res, res), device=dev),
+            torch.ones((4, res, res), device=dev))
+    dmax = _check_k4(table, res, f)
+    assert (dmax == -1).all()
+    (acc, wacc), _ = assemble(table, res, f, 1e-2)
+    assert not acc.any() and not wacc.any()
+    assert not _check_k5(table, slot_orig, cots, dmax, res, f).any()
+
+
+@pytest.mark.parametrize("res,f", [(50, 2), (50, 1), (50, 3), (64, 1),
+                                   (64, 3)])
+def test_k4_k5_ragged_and_other_footprints(dev, res, f):
+    # res 50: a ragged tile edge; f = 1 and 3: other halo widths, row
+    # pitches that are not a multiple of 4 floats
+    table, slot_orig, cots, order = _tables(dev, r=3, n=1500, res=res, f=f,
+                                            behind=3)
+    dmax = _check_k4(table, res, f)
+    _check_k5(table, slot_orig, cots, dmax, res, f, order)
 
 
 def test_chamfer_backward_repeats_bitwise(dev):
@@ -399,14 +511,15 @@ def test_pose_step_is_deterministic(dev):
 
 
 def test_splat_launch_counters(dev):
-    table, cots = _tables("cpu", r=1, n=300, res=32)
-    before = (assemble.launches, assemble_bwd.launches)
+    table, slot_orig, cots, _ = _tables("cpu", r=1, n=300, res=32)
+    before = (assemble.launches, assemble_bwd_points.launches)
     (_, _), dmax = assemble(table, 32, 2, 1e-2)                # host: plain
-    assemble_bwd(table, cots, dmax, 32, 2, 1e-2)
-    assert (assemble.launches, assemble_bwd.launches) == before
+    assemble_bwd_points(table, slot_orig, cots, dmax, 32, 2, 6, 1e-2)
+    assert (assemble.launches, assemble_bwd_points.launches) == before
     td = table.to(dev)
     (_, _), dmax = assemble(td, 32, 2, 1e-2)
-    assemble_bwd(td, tuple(c.to(dev) for c in cots), dmax, 32, 2, 1e-2)
+    assemble_bwd_points(td, slot_orig.to(dev), tuple(c.to(dev) for c in cots),
+                        dmax, 32, 2, 6, 1e-2)
     torch.cuda.synchronize()
-    assert (assemble.launches, assemble_bwd.launches) == \
+    assert (assemble.launches, assemble_bwd_points.launches) == \
         (before[0] + 1, before[1] + 1)

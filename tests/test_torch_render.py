@@ -60,10 +60,15 @@ def test_project_attrs_and_build_table_match(seed, n, res, spread):
         else:
             np.testing.assert_allclose(b[0].numpy(), np.asarray(a),
                                        rtol=2.4e-7, atol=0)
-    tab_t, keep_t, slot_t = tpr._build_table(
+    tab_t, keep_t, slot_t, order_t = tpr._build_table(
         *[_t(a)[None] for a in attrs_j[:4]], _t(cols)[None],
         _t(attrs_j[4])[None], res, F, SLOTS)
     np.testing.assert_array_equal(tab_t[0].numpy(), np.asarray(tab_j))
+    # order: the points sorted by pixel, the kept ones first by slot
+    assert torch.equal(order_t.sort(dim=1).values, torch.arange(n)[None])
+    sorted_slot = slot_t.gather(1, order_t) % (res * res)
+    kept = keep_t.gather(1, order_t)
+    assert (sorted_slot[kept].diff() >= 0).all()
     np.testing.assert_array_equal(keep_t[0].numpy(), np.asarray(keep_j))
     np.testing.assert_array_equal(slot_t[0].numpy(), np.asarray(slot_j))
     if spread < 0.1:
@@ -175,9 +180,118 @@ def test_masks_match():
         t, (torch.zeros((1, 3, 4, 4), device="meta"),
             torch.zeros((1, 4, 4), device="meta")),
         torch.zeros((1, 4, 4), device="meta"), 4, F, GAMMA),
+    lambda t: tsk.assemble_bwd_points(
+        t, torch.zeros((1, 5), dtype=torch.int64, device="meta"),
+        (torch.zeros((1, 3, 4, 4), device="meta"),
+         torch.zeros((1, 4, 4), device="meta")),
+        torch.zeros((1, 4, 4), device="meta"), 4, F, SLOTS, GAMMA),
 ])
 def test_splat_wrappers_raise_off_cpu_and_cuda(fn):
     # like K1-K3: the plain twin only for a CPU tensor, never a fallback
     t = torch.zeros((1, SLOTS, tsk.CH, 4 + 2 * F, 4 + 2 * F), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fn(t)
+
+
+def _dropping_cloud(seed, n, res):
+    """A cloud whose table drops points both ways: 10 points on one pixel
+    (more than SLOTS) and 5 behind the camera (z > eye)."""
+    pts, cols = _cloud(seed, n)
+    r = np.random.default_rng(seed + 100)
+    pts[:10] = np.float32([0.1, 0.1, 0.0]) + \
+        r.uniform(-1e-3, 1e-3, (10, 3)).astype(np.float32)
+    pts[10:15, 2] = 3.5
+    attrs = jpr._project_attrs(jnp.asarray(pts), 0.02,
+                               jpr.RenderCamera.default(res), F)
+    return pts, cols, attrs
+
+
+def test_bwd_points_twin_matches_pallas_interpret():
+    # K5's twin (dense twin + gather) against the reference's assemble_bwd
+    # in Pallas interpret mode gathered at the same slot positions, as the
+    # reference's _slots_pallas_bwd gathers: within 1e-6 of each channel's
+    # largest value (the twin test's bound: exp rounding only), exact
+    # zeros for dropped points
+    res = 32
+    pts, cols, attrs = _dropping_cloud(1, 600, res)
+    tab, keep, slot_orig = jpr._build_table(*attrs[:4], jnp.asarray(cols),
+                                            attrs[4], res, F, SLOTS)
+    keep = np.asarray(keep)
+    assert not keep[:10].all() and not keep[10:15].any()
+    r = np.random.default_rng(10)
+    g_acc = r.normal(size=(1, 3, res, res)).astype(np.float32)
+    g_w = r.normal(size=(1, res, res)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        _, dmax = jsk.assemble(tab[None], res, F, SLOTS, GAMMA)
+        dt = jsk.assemble_bwd(tab[None], (jnp.asarray(g_acc),
+                                          jnp.asarray(g_w)), dmax, res, F,
+                              SLOTS, GAMMA)[0]
+    flat = np.concatenate([np.asarray(dt).transpose(1, 0, 2, 3).reshape(
+        tsk.CH, -1), np.zeros((tsk.CH, 1), np.float32)], axis=1)
+    ref = flat[:, np.asarray(slot_orig)]                       # [7,N]
+    got = tsk.assemble_bwd_points_plain(
+        _t(tab)[None], _t(slot_orig).long()[None], (_t(g_acc), _t(g_w)),
+        _t(dmax), res, F, SLOTS, GAMMA)[0].numpy()
+    assert got.shape == ref.shape
+    assert (got[:, ~keep] == 0).all()
+    for c in range(tsk.CH):
+        assert _rel(got[c], ref[c]) <= 1e-6, c
+
+
+def test_plain_twins_on_the_strided_table_equal_contiguous():
+    # _build_table returns a view (render stride size + 1) that the
+    # kernels read in place; the twins give the same bits on it and on
+    # its contiguous copy
+    res = 32
+    _, cols, attrs = _dropping_cloud(2, 800, res)
+    pa = [_t(np.stack([np.asarray(a)] * 2)) for a in attrs]
+    table, _, slot_orig, order = tpr._build_table(
+        *pa[:4], _t(np.stack([cols] * 2)), pa[4], res, F, SLOTS)
+    dense = table.contiguous()
+    assert not table.is_contiguous()
+    assert table.stride(0) == dense.stride(0) + 1
+    (acc, wacc), dmax = tsk.assemble(table, res, F, GAMMA)
+    (acc_c, wacc_c), dmax_c = tsk.assemble(dense, res, F, GAMMA)
+    assert torch.equal(acc, acc_c) and torch.equal(wacc, wacc_c) and \
+        torch.equal(dmax, dmax_c)
+    r = np.random.default_rng(11)
+    cots = (_t(r.normal(size=(2, 3, res, res)).astype(np.float32)),
+            _t(r.normal(size=(2, res, res)).astype(np.float32)))
+    g = tsk.assemble_bwd_points(table, slot_orig, cots, dmax, res, F, SLOTS,
+                                GAMMA, order)
+    assert torch.equal(g, tsk.assemble_bwd_points(dense, slot_orig, cots,
+                                                  dmax, res, F, SLOTS, GAMMA))
+    assert g.shape == (2, tsk.CH, 800) and g.abs().sum() > 0
+
+
+@pytest.mark.parametrize("res", [32, 50, 64, 112, 224])
+@pytest.mark.parametrize("f", [1, 2, 3])
+def test_splat_plan_covers_every_pixel_once(res, f):
+    # the grid's threads map onto the pixels one to one, each pixel's
+    # window lies in its tile's halo, a halo row fits one 64-bit word and
+    # the block fits the card (1,024 threads, 227 KB of shared memory,
+    # 2^31 - 1 blocks in x; the renders go in y, at most 65,535)
+    plan = tsk.splat_plan(res, f)
+    tw, th = plan["tile_w"], plan["tile_h"]
+    assert plan["halo_w"] == tw + 2 * f <= 64
+    assert plan["halo_h"] == th + 2 * f
+    assert plan["threads"] == tw * th <= 1024 and plan["threads"] % 32 == 0
+    assert plan["smem"] <= 232448 and plan["blocks"] < 2 ** 31
+    cover = np.zeros((res, res), np.int64)
+    for blk in range(plan["blocks"]):
+        ty, tx = divmod(blk, plan["tiles_x"])
+        t = np.arange(plan["threads"])
+        qx, qy = tx * tw + t % tw, ty * th + t // tw
+        ok = (qx < res) & (qy < res)
+        np.add.at(cover, (qy[ok], qx[ok]), 1)
+        # padded window of pixel q: rows qy..qy+2f, columns qx..qx+2f
+        assert (qx[ok] + 2 * f < tx * tw + plan["halo_w"]).all()
+        assert (qy[ok] + 2 * f < ty * th + plan["halo_h"]).all()
+    assert (cover == 1).all()
+
+
+def test_splat_plan_raises_beyond_one_word():
+    # a halo row of 32 + 2f columns must fit one 64-bit presence word
+    assert tsk.splat_plan(224, 16)["halo_w"] == 64
+    with pytest.raises(ValueError, match="64-bit word"):
+        tsk.splat_plan(224, 17)
