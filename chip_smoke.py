@@ -49,6 +49,7 @@ directory that does not hold the genpc_tpu_torch package.
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -132,8 +133,26 @@ K1_SHAPES = [
     ("refine", (13, 2048, 2048), 0),
     ("pose_512", (52, 512, 512), 13),
     ("pose_2048", (52, 2048, 2048), 13),
+    # one object (run_pipeline, run_lidar): the metric, the symmetry sweep
+    # (24 azimuths x 13 offsets) and its fine sweep (x 9), a chunk of the
+    # fine grid (125 candidates), the coarse ICP (11 scales), the final
+    # refine, the pose loss (4 renders)
+    ("metric_1", (1, 16384, 16384), 0),
+    ("sweep_1", (312, 4096, 4096), 1),
+    ("sweep_fine_1", (117, 4096, 4096), 1),
+    ("fine_1", (125, 2048, 2048), 1),
+    ("icp_1", (11, 2048, 2048), 1),
+    ("refine_1", (1, 2048, 2048), 0),
+    ("pose1_512", (4, 512, 512), 1),
+    ("pose1_2048", (4, 2048, 2048), 1),
+    # run_batched_lidar over 8 scans: each partial against its fused cloud
+    # (padded by repetition to the longest), and the held-out wedges
+    ("uhd", (8, 65536, 20000), 0),
+    ("holdout", (8, 1400, 20000), 0),
 ]
 K3_SHAPE = (13, 16384, 16384)
+#: K3 for one object (the per-object metric)
+K3_SHAPE_1 = (1, 16384, 16384)
 
 
 def k1_inputs(dev, shape, shared, seed=0):
@@ -260,10 +279,14 @@ def check_k1(dev):
 def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
              fusion=(13, 229376, 20000), seed=1):
     """K2 (FPS) against its plain version: the exact sequence at a small
-    shape, at the metric's ([13,163840] -> 16,384) and at the fusion's (13
+    shape, at the metric's ([13,163840] -> 16,384), at the fusion's (13
     clouds of the fusion's sizes, up to 65,536 partial + 163,840
     completion points, padded by repetition as ``fuse_clouds_batched``
-    pads them, -> 20,000).  Returns the metric shape's numbers."""
+    pads them, -> 20,000), at one object's stage 1, metric, fusion and
+    pose subsample, at the Waymo stage 1 (8 scans) and at the PED shape
+    (65,536 points drawn with replacement from 400, -> 10,000: after 400
+    picks every minimum distance is 0, a tie at every pick).  Returns the
+    metric shape's numbers and every shape's by name."""
     import numpy as np
     import torch
     from genpc_tpu_torch.ops.fps import pad_repeat
@@ -279,12 +302,19 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     fusion_sizes = n - r.integers(0, 32768, b)
     fusion_sizes[0] = n
     shapes = {"metric": ([metric[1]] * metric[0], metric[2]),
-              "fusion": (fusion_sizes.tolist(), fusion[2])}
+              "fusion": (fusion_sizes.tolist(), fusion[2]),
+              "stage1_1": ([65536], 10000), "metric_1": ([163840], 16384),
+              "fusion_1": ([229376], 20000), "pose_1": ([2048], 512),
+              "stage1_lidar": ([65536] * 8, 10000), "ped": (None, 10000)}
     out = {}
     for name, (sizes, k) in shapes.items():
-        p = torch.tensor(pad_repeat([r.uniform(-0.5, 0.5, (m, 3))
-                                     for m in sizes]),
-                         dtype=torch.float32, device=dev)
+        if sizes is None:
+            base = r.uniform(-0.5, 0.5, (400, 3))
+            clouds = [base[r.choice(400, 65536, replace=True)]]
+            sizes = [400]       # the unique points: the real work
+        else:
+            clouds = [r.uniform(-0.5, 0.5, (m, 3)) for m in sizes]
+        p = torch.tensor(pad_repeat(clouds), dtype=torch.float32, device=dev)
         b, n, _ = p.shape
         plan = fps_plan(n)
         active = active_clusters(dev.index or 0, plan["cluster"],
@@ -305,7 +335,8 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
         ms = cuda_ms(lambda: fps_batched(p, k))
         plain_ms = cuda_ms(lambda: fps_batched_plain(p, k))
         # each of the k-1 picks updates every real point's distance (8
-        # flops); the real points read once, the indices written once
+        # flops); the real points read once, the indices written once (at
+        # the PED shape the 400 unique points are the real work)
         real = sum(sizes)
         bd = bound(real * 12 + nbytes(ik), 8.0 * real * (k - 1))
         log(f"K2 time {name}: kernel {ms:.3f} ms ({ms / (k - 1) * 1e3:.3f} "
@@ -324,7 +355,7 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
                      "library_ms": None, **bd}
         del p, ik, ip
         torch.cuda.empty_cache()
-    return out["metric"]
+    return out["metric"], out
 
 
 def topk_yardstick(x1, x2, pr):
@@ -340,7 +371,7 @@ def topk_yardstick(x1, x2, pr):
     return vals, idx
 
 
-def check_k3(dev):
+def check_k3(dev, shape=K3_SHAPE):
     """K3 (EMD bid phase): bitwise equal to bid_plain_direct (the same
     function in the same fp32 order) and within the reference contract of
     bid_plain (the reference's XLA expansion: >= 99.5 % identical bids,
@@ -349,8 +380,8 @@ def check_k3(dev):
     from genpc_tpu_torch.ops.emd_kernel import (bid, bid_plain,
                                                 bid_plain_direct, bid_plan,
                                                 spatial_order)
-    x1, x2, pr = k3_inputs(dev)
-    b, n, m = K3_SHAPE
+    x1, x2, pr = k3_inputs(dev, shape)
+    b, n, m = shape
     plan = bid_plan(b, n, m)
     order = spatial_order(x1)
     out_k = bid(x1, x2, pr, order=order)
@@ -363,7 +394,7 @@ def check_k3(dev):
     frac = (out_k[0] == out_p[0]).float().mean().item()
     err = max((out_k[1] - out_p[1]).abs().max().item(),
               (out_k[2] - out_p[2]).abs().max().item())
-    log(f"K3 emd_bid {K3_SHAPE}: plan rows {plan['rows']} threads "
+    log(f"K3 emd_bid {shape}: plan rows {plan['rows']} threads "
         f"{plan['threads']} ({plan['blocks']} blocks); bitwise equal to "
         f"bid_plain_direct, with the auction's spatial row order and "
         f"without: {bitwise}; against bid_plain: bid agreement "
@@ -381,7 +412,7 @@ def check_k3(dev):
     # filter leaves the root and the subtractions to the few pairs that
     # can enter the top two
     bd = bound(nbytes(x1, x2, pr, *out_k), 8.0 * b * n * m)
-    log(f"K3 time: kernel {ms:.3f} ms (rows in the caller's order: "
+    log(f"K3 time {shape}: kernel {ms:.3f} ms (rows in the caller's order: "
         f"{unordered_ms:.3f} ms), plain (direct) {plain_ms:.3f} ms, "
         f"plain (expansion) {xla_ms:.3f} ms, (3 - cdist - price).topk(2) "
         f"{library_ms:.3f} ms, bound {bd['bound_ms']:.4f} ms "
@@ -390,11 +421,11 @@ def check_k3(dev):
             "library_ms": library_ms, **bd}
 
 
-def _pose_tables(dev, res, n_pts, seed=3):
-    """Slot tables of the pose path: 13 synthetic objects' completions
+def _pose_tables(dev, res, n_pts, n_obj=13, seed=3):
+    """Slot tables of the pose path: n_obj synthetic objects' completions
     (voxel 0.02, resampled to n_pts) under the 4 start rotations about y,
-    R = 52 renders, built by the port's _build_table: (table, slot_orig,
-    build order, points kept)."""
+    R = 4 n_obj renders (52 batched, 4 for one object), built by the
+    port's _build_table: (table, slot_orig, build order, points kept)."""
     import numpy as np
     import torch
     from genpc_tpu_torch.geometry.transforms import rotation_6d_to_matrix
@@ -405,7 +436,7 @@ def _pose_tables(dev, res, n_pts, seed=3):
     from genpc_tpu_torch.render.point_renderer import (
         RenderCamera, _build_table, _project_attrs)
     clouds, cols = [], []
-    for i in range(13):
+    for i in range(n_obj):
         _, _, gt, gt_rgb = make_object(seed + i, n_gt=40000)
         v, vc = voxel_down_sample(gt, 0.02, gt_rgb)
         v, vc = resample_fixed(v, n_pts, vc)
@@ -415,8 +446,9 @@ def _pose_tables(dev, res, n_pts, seed=3):
     col = torch.tensor(np.stack(cols), dtype=torch.float32, device=dev)
     R = rotation_6d_to_matrix(torch.stack(
         [rot6d_from_axis_angle("y", 90.0 * s, dev) for s in range(4)]))
-    pts = torch.einsum("bnj,kij->bkni", pts, R).reshape(52, n_pts, 3)
-    col = col[:, None].expand(13, 4, n_pts, 3).reshape(52, n_pts, 3)
+    r = 4 * n_obj
+    pts = torch.einsum("bnj,kij->bkni", pts, R).reshape(r, n_pts, 3)
+    col = col[:, None].expand(n_obj, 4, n_pts, 3).reshape(r, n_pts, 3)
     attrs = _project_attrs(pts, 0.02 * (2048 / n_pts) ** 0.5,
                            RenderCamera.default(res), 2)
     # a checkout before the build order returned three values
@@ -458,14 +490,15 @@ def k5_bound(slot_orig, kept, res, f=2, slots=6):
     return bound(n_bytes, 30.0 * (2 * f + 1) ** 2 * kept)
 
 
-def check_k4_k5(dev, shapes=((224, 2048), (112, 512)), seed=4):
+def check_k4_k5(dev, shapes=((224, 2048, 13), (112, 512, 13),
+                            (224, 2048, 1), (112, 512, 1)), seed=4):
     """K4 (splat forward) and K5 (splat backward, per point) against their
-    plain versions at the pose path's shapes (R = 52, S = 6, f = 2, gamma
-    1e-2): bit-equal on the table _build_table returns (a view with render
-    stride size + 1), on its contiguous copy and on a table with every
-    entry present, and bitwise repeatable.  Times on the contiguous
-    table, so that no copy is inside them.  Returns the main shape's
-    numbers and prints both."""
+    plain versions at the pose path's shapes (R = 52 batched and R = 4 for
+    one object, S = 6, f = 2, gamma 1e-2): bit-equal on the table
+    _build_table returns (a view with render stride size + 1), on its
+    contiguous copy and on a table with every entry present, and bitwise
+    repeatable.  Times on the contiguous table, so that no copy is inside
+    them.  Returns the main shape's numbers and prints all."""
     import numpy as np
     import torch
     from genpc_tpu_torch.render.splat_kernel import (
@@ -499,18 +532,18 @@ def check_k4_k5(dev, shapes=((224, 2048), (112, 512)), seed=4):
         rep = (torch.equal(acc, acc2) and torch.equal(wacc, wacc2)
                and torch.equal(dmax, dmax2) and torch.equal(d, d2)
                and torch.equal(d, d_caller))
-        log(f"K4/K5 res {res} {name}: K4 max err vs plain {err4:.3e}, K5 "
-            f"{err5:.3e}; bitwise repeat (K5 also in the caller's point "
-            f"order) {rep}")
+        log(f"K4/K5 res {res} R {t.shape[0]} {name}: K4 max err vs plain "
+            f"{err4:.3e}, K5 {err5:.3e}; bitwise repeat (K5 also in the "
+            f"caller's point order) {rep}")
         # the twins sum in the kernels' order with the same roundings:
         # the contract is bit-equality
         if err4 != 0.0 or err5 != 0.0 or not rep:
-            fail(f"K4/K5 res {res} {name}: not bit-equal to the plain "
-                 f"versions or not repeatable")
+            fail(f"K4/K5 res {res} R {t.shape[0]} {name}: not bit-equal "
+                 f"to the plain versions or not repeatable")
         return dmax, err4, err5
 
-    for res, n_pts in shapes:
-        table, slot_orig, order, kept = _pose_tables(dev, res, n_pts)
+    for res, n_pts, n_obj in shapes:
+        table, slot_orig, order, kept = _pose_tables(dev, res, n_pts, n_obj)
         r = table.shape[0]
         cots = (torch.tensor(g.normal(size=(r, 3, res, res)),
                              dtype=torch.float32, device=dev),
@@ -523,7 +556,7 @@ def check_k4_k5(dev, shapes=((224, 2048), (112, 512)), seed=4):
         dense = table.contiguous()
         dmax, err4, err5 = parity("strided view", table, slot_orig, order)
         parity("contiguous", dense, slot_orig, order)
-        full, full_so = _full_table(dev, res)
+        full, full_so = _full_table(dev, res, r=r)
         dmax_full = parity("every entry present", full, full_so)[0]
         ms4 = cuda_ms(lambda: k4(dense))
         plain4 = cuda_ms(lambda: assemble_plain(dense, res, 2, 1e-2))
@@ -541,7 +574,8 @@ def check_k4_k5(dev, shapes=((224, 2048), (112, 512)), seed=4):
         b4 = bound(nbytes(dense) // 7 + kept * 6 * 4
                    + nbytes(acc, wacc, dmax), 30.0 * 25 * kept)
         b5 = k5_bound(slot_orig, kept, res)
-        log(f"K4 time res {res} (contiguous table): kernel {ms4:.4f} ms, "
+        log(f"K4 time res {res}, R {r} (contiguous table): kernel "
+            f"{ms4:.4f} ms, "
             f"plain {plain4:.3f} ms, bound {b4['bound_ms']:.4f} ms "
             f"({b4['bound_by']}); K5 (per point): kernel {ms5:.4f} ms "
             f"(points in the caller's order {caller5:.4f} ms), "
@@ -549,13 +583,13 @@ def check_k4_k5(dev, shapes=((224, 2048), (112, 512)), seed=4):
             f"({b5['bound_by']}, per-point bytes); no library call for "
             f"either; every entry present: K4 {full4:.4f} ms, K5 "
             f"{full5:.4f} ms ({full_so.shape[1]} points a render)")
-        out[res] = ({"max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
-                     "library_ms": None, **b4},
-                    {"max_abs_err": err5, "ms": ms5, "plain_ms": plain5,
-                     "library_ms": None, **b5})
+        out[res, r] = ({"max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
+                        "library_ms": None, **b4},
+                       {"max_abs_err": err5, "ms": ms5, "plain_ms": plain5,
+                        "library_ms": None, **b5})
         del table, dense, full, full_so, cots, order
         torch.cuda.empty_cache()
-    main = out[shapes[0][0]]
+    main = out[shapes[0][0], 4 * shapes[0][2]]
     return {"splat_fwd": main[0], "splat_bwd": main[1]}
 
 
@@ -574,9 +608,14 @@ KERNELS = [
      "genpc_tpu_torch/csrc/splat.cu",
      "genpc_tpu/render/splat_kernel.py:201"),
 ]
-#: the kernels each main path must launch
+#: the kernels each main path must launch (the Waymo paths score by UHD,
+#: with no EMD)
 PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
-                "registration": tuple(k[0] for k in KERNELS)}
+                "registration": tuple(k[0] for k in KERNELS),
+                "per_object": tuple(k[0] for k in KERNELS),
+                "lidar_car": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
+                "lidar_ped": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
+                "run_lidar": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd")}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -699,6 +738,309 @@ def small_input_check(tmp: str, seed: int) -> None:
                 fail(f"small input {path} {f}: card and host disagree")
 
 
+#: configs/lidar.yaml and configs/lidar_ped.yaml as keyword overrides (on
+#: the Redwood protocol sizes of REDWOOD), with registration on and no
+#: saving, as bench_waymo.py runs them
+LIDAR = dict(REDWOOD, trust_aligned_completion=False, point_size=2,
+             mask_pixel_rate=2, removal_radius=100, edge_point_size=1)
+LIDAR_PED = dict(LIDAR, point_size=3, removal_radius=800)
+#: scans a category in the Waymo passes (bench_waymo.py takes 20: cut
+#: for the time limit), and objects of the per-object Redwood pass
+LIDAR_SCANS = 8
+PER_OBJECT_FLAGS = 3
+#: the per-object tiny config: TINY with registration, small pose inputs
+#: on both sides, and more fused points than the metric samples (the
+#: per-object metric, unlike the batched one, does not pad a fused cloud
+#: that the outlier mask left short)
+TINY_OBJ = dict(TINY, trust_aligned_completion=False, pose_partial_points=64,
+                fused_points=512)
+
+
+def _arrays(x):
+    """The numeric arrays in a step's arguments or result, in order."""
+    import numpy as np
+    if isinstance(x, (tuple, list)):
+        return [a for v in x for a in _arrays(v)]
+    if x is None or isinstance(x, (str, bool)):
+        return []
+    return [np.asarray(_np(x), np.float64)]
+
+
+def _step_err(a, b) -> float:
+    pairs = list(zip(_arrays(a), _arrays(b)))
+    return max(float(abs(x.reshape(y.shape) - y).max()) for x, y in pairs)
+
+
+class patched:
+    """Set attributes (or dict items) for the duration of a with block:
+    (owner, name, value) triples."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = []
+        for owner, name, value in self.triples:
+            if isinstance(owner, dict):
+                self.saved.append((owner, name, owner[name]))
+                owner[name] = value
+            else:
+                # the raw attribute: a class keeps its staticmethod
+                self.saved.append((owner, name,
+                                   inspect.getattr_static(owner, name)))
+                setattr(owner, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in reversed(self.saved):
+            if isinstance(owner, dict):
+                owner[name] = value
+            else:
+                setattr(owner, name, value)
+
+
+def _tape(fn, tape):
+    """fn recording its results onto an empty tape, or replaying a full
+    tape in call order without calling fn."""
+    replay = list(tape)
+
+    def call(*a, **k):
+        if replay:
+            return replay.pop(0)
+        out = fn(*a, **k)
+        tape.append(out)
+        return out
+    return call
+
+
+def _recorded(calls, name, fn):
+    def call(*a, **k):
+        out = fn(*a, **k)
+        calls.append((name, a, k, out))
+        return out
+    return call
+
+
+def _hold_steps(label, calls, orig) -> None:
+    """Replay each step the card ran on the host, from the same inputs;
+    its transforms must agree within REG_STEP_TOL."""
+    for name, a, k, out in calls:
+        k = {kk: ("cpu" if kk == "device" else v) for kk, v in k.items()}
+        host = orig[name](*_to(a, "cpu"), **k)
+        err = _step_err(out, host)
+        log(f"{label} {name}: card vs host on the same inputs, max |dT| "
+            f"{err:.3e}")
+        if err > REG_STEP_TOL:
+            fail(f"{label} {name}: card and host disagree")
+
+
+def small_input_check_per_object(tmp: str, seed: int) -> None:
+    """run_pipeline and run_batched_lidar (PED scans, a 60-degree
+    held-out wedge, registration on) at the tiny size, card against host.
+
+    The card's symmetry plans are replayed on the host (the search itself
+    is held card against host by small_input_check, and its K1 launches
+    in phase 3).  Every registration step the card ran is replayed on the
+    host from the same inputs and held to REG_STEP_TOL; where the two
+    runs' fused clouds are equal, UHD and held-out UHD are held within
+    1e-5; the end-to-end gaps are printed (see small_input_check)."""
+    import numpy as np
+    from genpc_tpu_torch import main as tmain
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.io.synthetic_data import (write_dataset,
+                                                   write_lidar_dataset)
+    from genpc_tpu_torch.models.synthetic import SyntheticImage23D
+    from genpc_tpu_torch.parallel import batched_runner
+    from genpc_tpu_torch.pipeline import registration as treg
+    from genpc_tpu_torch.registration import icp as ticp
+    flags = ["01184", "05117"]
+    root = os.path.join(tmp, f"tiny_obj_{seed}")
+    write_dataset(root, flags, seed=seed, n_gt=8192)
+    search = SyntheticImage23D.plan_symmetry_batched
+
+    # run_pipeline
+    targets = {"object_pose_optimization": (treg, "object_pose_optimization"),
+               "coarse_scale_sweep": (ticp, "coarse_scale_sweep"),
+               "iterative_scale_search": (ticp, "iterative_scale_search"),
+               "anisotropic": (treg._REFINE, "anisotropic")}
+    orig = {n: (o[a] if isinstance(o, dict) else getattr(o, a))
+            for n, (o, a) in targets.items()}
+    got, ref, plans, calls = {}, {}, [], []
+    for dev, out in (("cuda", got), ("cpu", ref)):
+        rec = [(o, a, _recorded(calls, n, orig[n]))
+               for n, (o, a) in targets.items()] if dev == "cuda" else []
+        with patched((SyntheticImage23D, "plan_symmetry_batched",
+                      staticmethod(_tape(search, plans))), *rec):
+            out.update(tmain.run_pipeline(load_config(device=dev, **TINY_OBJ),
+                                          flags, root))
+    _hold_steps(f"small input seed {seed} run_pipeline", calls, orig)
+    for f in flags:
+        log(f"small input seed {seed} run_pipeline {f}: cuda CD "
+            f"{got[f]['cd']:.8f} EMD {got[f]['emd']:.7f} | cpu CD "
+            f"{ref[f]['cd']:.8f} EMD {ref[f]['emd']:.7f}")
+        if not all(map(math.isfinite, (got[f]["cd"], got[f]["emd"]))):
+            fail(f"small input run_pipeline {f}: non-finite CD/EMD")
+
+    # run_batched_lidar over PED scans with the held-out wedge
+    lflags = write_lidar_dataset(root, {"PED": 2}, seed=seed)["PED"]
+    bsteps = {n: getattr(batched_runner, n) for n in REG_STEPS}
+    reg = batched_runner.batched_reg
+    got, ref, plans, calls, fused = {}, {}, [], [], {}
+    for dev, out in (("cuda", got), ("cpu", ref)):
+        fused[dev] = {}
+
+        def rec_reg(cfg, arts, *a, _dev=dev, **k):
+            reg(cfg, arts, *a, **k)
+            fused[_dev].update({x.flag: x.fused_xyz for x in arts})
+
+        rec = [(batched_runner, n, _recorded(calls, n, bsteps[n]))
+               for n in REG_STEPS] if dev == "cuda" else []
+        with patched((SyntheticImage23D, "plan_symmetry_batched",
+                      staticmethod(_tape(search, plans))),
+                     (batched_runner, "batched_reg", rec_reg), *rec):
+            out.update(batched_runner.run_batched_lidar(
+                load_config(device=dev, **dict(
+                    TINY, downsample_num=1024,
+                    trust_aligned_completion=False)),
+                lflags, root, "PED", holdout_wedge_deg=60.0))
+    _hold_steps(f"small input seed {seed} run_batched_lidar PED", calls,
+                bsteps)
+    for f in lflags:
+        same = np.array_equal(fused["cuda"][f], fused["cpu"][f])
+        log(f"small input seed {seed} run_batched_lidar PED {f}: fused "
+            f"clouds equal {same}; cuda {json.dumps(got[f])} | cpu "
+            f"{json.dumps(ref[f])}")
+        if set(got[f]) != set(ref[f]) or "holdout_uhd" not in got[f]:
+            fail(f"small input run_batched_lidar {f}: held-out flags differ "
+                 f"or the wedge was not held out")
+        if not all(map(math.isfinite, got[f].values())):
+            fail(f"small input run_batched_lidar {f}: non-finite UHD")
+        if same and any(abs(got[f][k] - ref[f][k]) > 1e-5 for k in got[f]):
+            fail(f"small input run_batched_lidar {f}: UHD differs on equal "
+                 f"fused clouds")
+
+
+def _counted(label: str, counters, fn):
+    """Run fn with every launch count set to 0 just before and read just
+    after, each traced wrapper recording its launches by shape; prints
+    the counts and the histogram.  Returns (fn's result, wall, counts)."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    for name in TRACED:
+        counters[name].trace = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        traces = {name: counters[name].trace for name in TRACED}
+        for name in TRACED:
+            counters[name].trace = None
+    log(f"{label}: launches: " + json.dumps(launches))
+    launch_histogram(label, traces)
+    missing = [k for k in PATH_KERNELS[label.split(" ")[0]]
+               if launches[k] == 0]
+    if missing:
+        fail(f"{label}: kernels of the path never launched: {missing}")
+    return out, wall, launches
+
+
+def drive_per_object(root: str, flags, counters) -> dict:
+    """run_pipeline (per object, registration on) at the Redwood widths:
+    a warm-up pass, then the timed pass whose launches are counted; the
+    two must give bit-identical CD."""
+    import numpy as np
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.main import run_pipeline
+    from genpc_tpu_torch.tracing import StageTimer
+    cfg = load_config(device="cuda", **dict(REDWOOD,
+                                            trust_aligned_completion=False))
+    t0 = time.time()
+    warm = run_pipeline(cfg, flags, root)
+    log(f"per_object: warm-up pass {time.time() - t0:.2f} s")
+    timer = StageTimer("cuda")
+    results, wall, launches = _counted(
+        "per_object", counters, lambda: run_pipeline(cfg, flags, root,
+                                                     timer=timer))
+    log(f"per_object: timed pass {wall:.3f} s, "
+        f"{len(flags) / wall * 60:.3f} objects/min; spans (s, calls): "
+        + json.dumps({k: [round(t, 4), c]
+                      for k, (t, c) in timer.as_dict().items()}))
+    if set(results) != set(flags):
+        fail("per_object: missing objects in the results")
+    if not all(np.isfinite([m[k] for m in results.values()
+                            for k in ("cd", "emd")])):
+        fail("per_object: non-finite CD/EMD")
+    repeat = all(warm[f]["cd"] == results[f]["cd"] for f in flags)
+    log(f"per_object: warm-up and timed passes give bit-identical CD: "
+        f"{repeat}")
+    for f in flags:
+        log(f"  {f}: CD x100 {results[f]['cd'] * 100:.4f} / EMD x100 "
+            f"{results[f]['emd'] * 100:.4f}")
+    if not repeat:
+        fail("per_object: the two passes disagree: the path is not bitwise "
+             "repeatable")
+    return {"results": results, "launches": launches, "wall": wall}
+
+
+def drive_lidar(root: str, flags, category: str, cfg_kw: dict, counters,
+                warm: bool) -> dict:
+    """run_batched_lidar over one category of generated scans at its
+    config's values, registration on: an optional warm-up pass, the timed
+    pass (launches counted) and a pass with a 60-degree held-out wedge."""
+    import numpy as np
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.parallel.batched_runner import run_batched_lidar
+    label = f"lidar_{category.lower()}"
+    cfg = load_config(device="cuda", **cfg_kw)
+    if warm:
+        t0 = time.time()
+        run_batched_lidar(cfg, flags, root, category)
+        log(f"{label}: warm-up pass {time.time() - t0:.2f} s")
+    res, wall, launches = _counted(
+        label, counters, lambda: run_batched_lidar(cfg, flags, root,
+                                                   category))
+    t0 = time.time()
+    held = run_batched_lidar(cfg, flags, root, category,
+                             holdout_wedge_deg=60.0)
+    held_wall = time.time() - t0
+    uhds = [res[f]["uhd"] for f in flags]
+    hvals = [held[f]["holdout_uhd"] for f in flags
+             if "holdout_uhd" in held[f]]
+    log(f"{label}: timed pass {wall:.3f} s, {len(flags) / wall * 60:.3f} "
+        f"objects/min, mean UHD x100 {np.mean(uhds) * 100:.4f}; held-out "
+        f"pass {held_wall:.3f} s, mean held-out UHD x100 "
+        f"{np.mean(hvals) * 100 if hvals else float('nan'):.4f} over "
+        f"{len(hvals)} of {len(flags)} scans")
+    for f in flags:
+        log(f"  {f}: UHD x100 {res[f]['uhd'] * 100:.4f} | held out: "
+            + json.dumps({k: round(v * 100, 4) for k, v in held[f].items()}))
+    if not (np.isfinite(uhds).all() and np.isfinite(hvals).all()
+            and hvals):
+        fail(f"{label}: non-finite UHD or no scan held out")
+    return {"launches": launches, "wall": wall, "held_wall": held_wall}
+
+
+def drive_run_lidar(root: str, flags, counters) -> dict:
+    """main_lidar.run_lidar (per object: diff_init, reg_fine_xyz) over CAR
+    scans at configs/lidar.yaml's values."""
+    import numpy as np
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.main_lidar import run_lidar
+    cfg = load_config(device="cuda", **LIDAR)
+    res, wall, launches = _counted(
+        "run_lidar", counters, lambda: run_lidar(cfg, flags, root, "CAR"))
+    log(f"run_lidar: {len(flags)} CAR scans in {wall:.3f} s; UHD x100 "
+        + json.dumps({f: round(v * 100, 4) for f, v in res.items()}))
+    if set(res) != set(flags) or not np.isfinite(list(res.values())).all():
+        fail("run_lidar: missing or non-finite UHD")
+    return {"launches": launches, "wall": wall}
+
+
 def drive(path: str, root: str, flags, counters) -> dict:
     """run_batched of one path over the synthetic objects: a warm-up
     pass, then the timed pass whose kernel launches are counted."""
@@ -791,8 +1133,9 @@ def drive(path: str, root: str, flags, counters) -> dict:
 
 #: wrappers whose launches the timed passes record by shape, and what
 #: the shape holds
-TRACED = {"chamfer_nn": "(B, N, M)", "emd_bid": "(B, N, M)",
-          "splat_fwd": "(R, S, res)", "splat_bwd": "(R, N, res)"}
+TRACED = {"chamfer_nn": "(B, N, M)", "fps": "(B, N, k)",
+          "emd_bid": "(B, N, M)", "splat_fwd": "(R, S, res)",
+          "splat_bwd": "(R, N, res)"}
 
 
 def launch_histogram(path: str, traces: dict) -> None:
@@ -880,18 +1223,21 @@ def main() -> int:
     log(f"build: {path.name} in {time.time() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    report = {"chamfer_nn": check_k1(dev)[0], "fps": check_k2(dev),
+    report = {"chamfer_nn": check_k1(dev)[0], "fps": check_k2(dev)[0],
               "emd_bid": check_k3(dev), **check_k4_k5(dev)}
+    check_k3(dev, K3_SHAPE_1)
 
     # 4. the main paths
     from genpc_tpu_torch.categories import REDWOOD_FLAGS
-    from genpc_tpu_torch.io.synthetic_data import write_dataset
+    from genpc_tpu_torch.io.synthetic_data import (write_dataset,
+                                                   write_lidar_dataset)
     counters = {name: wrapper(spec) for name, spec, _, _ in KERNELS}
     flags = list(REDWOOD_FLAGS)
     runs = {}
     with tempfile.TemporaryDirectory(prefix="genpc_smoke_") as tmp:
         for seed in (1, 2):
             small_input_check(tmp, seed)
+            small_input_check_per_object(tmp, seed)
         root = os.path.join(tmp, "redwood_synthetic")
         t0 = time.time()
         write_dataset(root, flags, seed=0)
@@ -899,6 +1245,20 @@ def main() -> int:
             f"{time.time() - t0:.1f} s")
         for name in ("aligned", "registration"):
             runs[name] = drive(name, root, flags, counters)
+        runs["per_object"] = drive_per_object(
+            root, flags[:PER_OBJECT_FLAGS], counters)
+        wroot = os.path.join(tmp, "waymo_synthetic")
+        t0 = time.time()
+        scans = write_lidar_dataset(wroot, {"CAR": LIDAR_SCANS,
+                                            "PED": LIDAR_SCANS}, seed=0)
+        log(f"data: {LIDAR_SCANS} CAR and {LIDAR_SCANS} PED LiDAR-like "
+            f"scans written in {time.time() - t0:.1f} s")
+        runs["lidar_car"] = drive_lidar(wroot, scans["CAR"], "CAR", LIDAR,
+                                        counters, warm=True)
+        runs["lidar_ped"] = drive_lidar(wroot, scans["PED"], "PED",
+                                        LIDAR_PED, counters, warm=False)
+        runs["run_lidar"] = drive_run_lidar(wroot, scans["CAR"][:2],
+                                            counters)
         if "--profile" in sys.argv[1:]:
             profile_pass(root, flags)
     if not runs["registration"]["repeat"]:
@@ -910,15 +1270,18 @@ def main() -> int:
             runs["registration"]["results"][f]
         log(f"  {f}: {a['cd'] * 100:.4f} / {a['emd'] * 100:.4f} | "
             f"{r['cd'] * 100:.4f} / {r['emd'] * 100:.4f}")
-    for name, run in runs.items():
-        res = run["results"].values()
+    for name in ("aligned", "registration", "per_object"):
+        res = runs[name]["results"].values()
         log(f"{name}: mean CD x100 "
-            f"{sum(m['cd'] for m in res) / len(flags) * 100:.4f}, mean EMD "
-            f"x100 {sum(m['emd'] for m in res) / len(flags) * 100:.4f}")
+            f"{sum(m['cd'] for m in res) / len(res) * 100:.4f}, mean EMD "
+            f"x100 {sum(m['emd'] for m in res) / len(res) * 100:.4f} over "
+            f"{len(res)} objects")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": runs["registration"]["launches"][name],
+         "launches_by_path": {path: run["launches"][name]
+                              for path, run in runs.items()},
          **report[name]}
         for name, _spec, src, rep in KERNELS]}))
     log(json.dumps({"ok": True, "device": {

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from genpc_tpu_torch.ops.voxel import voxel_down_sample
+
 _PLY_DTYPES = {
     "char": "i1", "int8": "i1",
     "uchar": "u1", "uint8": "u1",
@@ -129,13 +131,11 @@ def load_xyz(path: str, down_sample: Optional[float] = None
 
     Mirrors reference utils/dataUtils.py:174-189: if the file has no (or
     all-zero) colors, synthesize colors from normalized coordinates.
-    ``down_sample`` (a voxel downsample) is not ported yet.
+    Optional voxel downsample mirrors the ``down_sample`` argument.
     """
     pts, colors = load_ply(path)
     if down_sample:
-        raise NotImplementedError(
-            "load_xyz(down_sample=...) needs ops/voxel, which is not ported "
-            "yet (ROADMAP queue 1, registration slice)")
+        pts, colors = voxel_down_sample(pts, down_sample, colors=colors)
     if colors is None or np.allclose(colors, 0):
         span = pts.max(axis=0) - pts.min(axis=0) + 1e-8
         colors = np.clip((pts - pts.min(axis=0)) / span, 0, 1)

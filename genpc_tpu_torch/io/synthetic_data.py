@@ -9,16 +9,29 @@ misses the far side.  Colours are per part, from the seed.
 
 ``write_dataset`` writes ``<flag>.ply`` and ``GT/<flag>.ply`` per flag,
 which ``run_batched`` reads like the Redwood scans.
+
+``write_lidar_dataset`` writes LiDAR-like scans in the Waymo layout,
+``root/{CAR,PED,OTHER}/<flag>.ply``, which ``run_batched_lidar`` and
+``main_lidar`` read: each scan is the part of a seeded object's GT that
+the exact Katz HPR (``ops/hpr.hidden_point_removal``) finds visible from
+a sensor at a seeded azimuth, subsampled to a per-category count, with
+no colours (``load_xyz`` derives them from the coordinates).  The counts
+(``LIDAR_POINTS``): PED 350-500, the size the reference's held-out-wedge
+guard is written for; CAR 2,000-8,000 and OTHER 800-3,000 are this
+generator's choice, not a measurement (the real scans are not in the
+repository).  The shapes are the same compound objects for every
+category; only the scan's sparsity tells the categories apart.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from genpc_tpu_torch.io.ply import save_ply
+from genpc_tpu_torch.ops.hpr import hidden_point_removal
 
 
 def _box(rng, n, c, h):
@@ -106,3 +119,34 @@ def write_dataset(root: str, flags: List[str], seed: int = 0,
         part, part_rgb, gt, gt_rgb = make_object(seed * 1000 + i, n_gt)
         save_ply(os.path.join(root, f"{flag}.ply"), part, part_rgb)
         save_ply(os.path.join(root, "GT", f"{flag}.ply"), gt, gt_rgb)
+
+
+#: points a generated LiDAR scan keeps, by category: [low, high)
+LIDAR_POINTS = {"CAR": (2000, 8000), "PED": (350, 500), "OTHER": (800, 3000)}
+
+
+def make_lidar_scan(seed: int, category: str, n_gt: int = 60000
+                    ) -> np.ndarray:
+    """One-sided sparse scan [n,3] float32 of make_object(seed)'s GT seen
+    from a sensor 3 units out at a seeded azimuth, 0.8 up."""
+    _, _, gt, _ = make_object(seed, n_gt)
+    rng = np.random.default_rng(seed + 7919)
+    az = rng.uniform(0, 2 * np.pi)
+    eye = np.array([3.0 * np.cos(az), 0.8, 3.0 * np.sin(az)])
+    visible = gt[hidden_point_removal(gt, eye, 100.0)]
+    lo, hi = LIDAR_POINTS[category]
+    n = min(int(rng.integers(lo, hi)), len(visible))
+    return visible[np.sort(rng.choice(len(visible), n, replace=False))]
+
+
+def write_lidar_dataset(root: str, counts: Dict[str, int], seed: int = 0
+                        ) -> Dict[str, List[str]]:
+    """Write ``root/<category>/<category>_<i>.ply`` scans, counts[category]
+    of each; returns the flags by category."""
+    flags = {}
+    for c, (category, n) in enumerate(sorted(counts.items())):
+        flags[category] = [f"{category}_{i:04d}" for i in range(n)]
+        for i, flag in enumerate(flags[category]):
+            pts = make_lidar_scan(seed * 1000 + c * 100 + i, category)
+            save_ply(os.path.join(root, category, f"{flag}.ply"), pts)
+    return flags

@@ -1,15 +1,20 @@
-"""End-to-end pipeline entry point (counterpart of the ``--batched`` branch of
-genpc_tpu/main.py: the object-batched runner is the only one ported).
+"""End-to-end pipeline entry point (counterpart of genpc_tpu/main.py).
+
+Runs the three stages over a set of object flags and evaluates CD/EMD
+against GT.  By default one object at a time (``run_pipeline``: stage 1
+per object, then stages 2-3 and the metric per object, a failed object
+printed and skipped); ``--batched`` runs the object-batched runner
+(``parallel/batched_runner.run_batched``).  Both register every
+completion to its partial (pose optimisation, coarse and fine ICP
+sweeps, final refine), the reference's headline path; ``--aligned``
+(``trust_aligned_completion=True``) lets completions their backend
+declares aligned skip registration.  Work runs on ``cfg.device``
+(``--device``, the card by default).  With ``save`` set (the config
+default) the workspace files are written under ``--output``.
 
 Usage:
   python -m genpc_tpu_torch.main --config configs/redwood.yaml \
-      --data-dir DATA --flags 01184 05117 [--aligned] [--device cuda]
-
-Stage 3 registers every completion to its partial (pose optimisation,
-coarse and fine ICP sweeps, final refine), the reference's headline
-path.  ``--aligned`` (``trust_aligned_completion=True``) takes the fast
-path instead: completions their backend declares aligned skip
-registration.  Workspace saving is not ported: runs use ``save=False``.
+      --data-dir DATA --flags 01184 05117 [--batched] [--device cpu]
 """
 
 from __future__ import annotations
@@ -17,27 +22,93 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from genpc_tpu_torch.categories import REDWOOD_FLAGS, get_category
-from genpc_tpu_torch.config import load_config
+from genpc_tpu_torch.categories import REDWOOD_FLAGS
+from genpc_tpu_torch.config import Config, load_config
+from genpc_tpu_torch.io.ply import load_xyz
+from genpc_tpu_torch.metrics.frame_fixes import apply_frame_fix
+from genpc_tpu_torch.metrics.metric import evaluate_pair, summarize
+from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
+from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
+from genpc_tpu_torch.pipeline.registration import reg
+from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
+from genpc_tpu_torch.runtime import resolve_device
+from genpc_tpu_torch.tracing import StageTimer, trace
 
 
-def summarize(results):
-    """Per-category print + averages (reference: main.py:70-78)."""
-    if not results:
-        return {}
-    for flag, m in results.items():
-        emd_txt = f", EMD: {m['emd']*100:.3f}" if "emd" in m else ""
-        print(f"Category: {get_category(flag)}, CD: {m['cd']*100:.3f}"
-              f"{emd_txt}")
-    avg = {k: float(np.mean([m[k] for m in results.values() if k in m]))
-           for k in next(iter(results.values()))}
-    print(f"Average CD: {avg['cd']*100:.6f}")
-    if "emd" in avg:
-        print(f"Average EMD: {avg['emd']*100:.6f}")
-    return avg
+def load_resampled(path: str, n_in: int, flag: str) -> ObjectArtifacts:
+    """A scan resampled to n_in points (with replacement when shorter),
+    the reference's fixed draw (seed 0)."""
+    xyz, rgb = load_xyz(path)
+    rng = np.random.default_rng(0)
+    idx = rng.choice(len(xyz), n_in, replace=len(xyz) < n_in)
+    return ObjectArtifacts(flag=flag, xyz=xyz[idx], rgb=rgb[idx])
+
+
+def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
+                 gt_dir: Optional[str] = None, with_metric: bool = True,
+                 with_emd: bool = True,
+                 timer: Optional[StageTimer] = None
+                 ) -> Dict[str, Dict[str, float]]:
+    """Per-object pipeline over flags; returns {flag: {'cd', 'emd'}} for
+    the objects that finished and have a GT.  Spans (load, stage1,
+    stage2, stage3, metric) go to ``timer``."""
+    if cfg.get("mesh_shape"):
+        raise NotImplementedError("cfg.mesh_shape: device meshes are not "
+                                  "ported (ROADMAP: multi-GPU data "
+                                  "parallelism)")
+    device = resolve_device(cfg.device)
+    timer = timer or StageTimer(device)
+    gt_dir = gt_dir or os.path.join(data_dir, "GT")
+    dp = DepthPrompting(cfg)
+    sa = ScaleAdapter(cfg)
+
+    n_in = int(cfg.get("input_points", 65536))
+    arts = {}
+    for flag in flags:
+        print(f"Processing {flag}...")
+        with timer.span("load"):
+            art = load_resampled(os.path.join(data_dir, f"{flag}.ply"),
+                                 n_in, flag)
+        with timer.span("stage1"):
+            dp.get_image(art)
+        arts[flag] = art
+
+    results: Dict[str, Dict[str, float]] = {}
+    for flag, art in arts.items():
+        # per-object fault isolation: one bad scan must not end the run
+        # (the reference's drivers print and continue)
+        try:
+            with timer.span("stage2"):
+                sa.scale_adapter(art)
+            with timer.span("stage3"):
+                reg(cfg, art, cd_inv_weight=0.5, diff_init=True,
+                    reg_fine_xyz=True)
+        except Exception as e:  # noqa: BLE001
+            print(f"Flag: {flag} FAILED: {type(e).__name__}: {e}")
+            continue
+        if with_metric:
+            gt_path = os.path.join(gt_dir, f"{flag}.ply")
+            if os.path.exists(gt_path):
+                with timer.span("metric"):
+                    gt, _ = load_xyz(gt_path)
+                    gt = apply_frame_fix(flag, gt)
+                    m = evaluate_pair(art.fused_xyz, gt,
+                                      num_points=int(cfg.metric_points),
+                                      emd_eps=float(cfg.emd_eps),
+                                      emd_iters=int(cfg.emd_iters),
+                                      with_emd=with_emd, device=device)
+                emd_txt = f", EMD: {m['emd']*100:.3f}" if "emd" in m else ""
+                print(f"Flag: {flag}, CD: {m['cd']*100:.3f}{emd_txt}")
+                results[flag] = m
+
+    if with_metric and results:
+        print("\n=== Results ===")
+        summarize(results)
+    return results
 
 
 def main(argv=None):
@@ -47,36 +118,83 @@ def main(argv=None):
     ap.add_argument("--gt-dir", default=None)
     ap.add_argument("--flags", nargs="*", default=None,
                     help="object flags (default: all redwood flags present)")
+    ap.add_argument("--output", default=None, help="workspace dir")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--backend", default=None,
                     help="override all generative backends (synthetic)")
+    ap.add_argument("--control-model", default=None,
+                    help="depth->image backend")
+    ap.add_argument("--rembg-model", default=None,
+                    help="background removal backend")
+    ap.add_argument("--generative-model", default=None,
+                    help="image->3D backend")
+    ap.add_argument("--model-size", default=None,
+                    help="generative preset scale (tiny/base/full)")
+    ap.add_argument("--quant-bits", type=int, default=None,
+                    help="weight-only DiT quantization: 0, 8 or 4")
     ap.add_argument("--aligned", action="store_true",
                     help="trust_aligned_completion: skip registration for "
-                         "completions already in the input frame (the "
-                         "fast path; default: register)")
+                         "completions already in the input frame")
+    ap.add_argument("--no-metric", action="store_true")
     ap.add_argument("--no-emd", action="store_true")
+    ap.add_argument("--batched", action="store_true",
+                    help="object-batched runner (each stage over the "
+                         "whole set)")
+    ap.add_argument("--mesh", default=None,
+                    help="device mesh for the batched runner, e.g. dp=8 "
+                         "(implies --batched; not ported, raises)")
+    ap.add_argument("--timings", action="store_true",
+                    help="print the per-stage timing table")
+    ap.add_argument("--profile", default=None,
+                    help="torch.profiler trace dir (Chrome trace)")
     args = ap.parse_args(argv)
 
-    cfg = load_config(args.config, save=False)
+    cfg = load_config(args.config)
     if args.device:
         cfg.device = args.device
+    if args.output:
+        cfg.output_path = args.output
     if args.backend:
         cfg.control_model = args.backend
         cfg.rembg_model = args.backend
         cfg.generative_model = args.backend
+    if args.control_model:
+        cfg.control_model = args.control_model
+    if args.rembg_model:
+        cfg.rembg_model = args.rembg_model
+    if args.generative_model:
+        cfg.generative_model = args.generative_model
+    if args.model_size:
+        cfg.model_size = args.model_size
+    if args.quant_bits is not None:
+        cfg.quant_bits = args.quant_bits
     if args.aligned:
         cfg.trust_aligned_completion = True
+    if args.mesh:
+        cfg.mesh_shape = {k: int(v) for k, v in
+                          (kv.split("=") for kv in args.mesh.split(","))}
+        args.batched = True
     flags = args.flags or [f for f in REDWOOD_FLAGS if os.path.exists(
         os.path.join(args.data_dir, f"{f}.ply"))]
 
-    from genpc_tpu_torch.parallel.batched_runner import run_batched
+    timer = StageTimer(resolve_device(cfg.device))
     start = time.time()
-    results = run_batched(cfg, flags, args.data_dir, args.gt_dir,
-                          with_emd=not args.no_emd)
+    with trace(args.profile):
+        if args.batched:
+            from genpc_tpu_torch.parallel.batched_runner import run_batched
+            results = run_batched(cfg, flags, args.data_dir, args.gt_dir,
+                                  with_emd=not args.no_emd)
+            if results:
+                print("\n=== Results ===")
+                summarize(results)
+        else:
+            run_pipeline(cfg, flags, args.data_dir, args.gt_dir,
+                         with_metric=not args.no_metric,
+                         with_emd=not args.no_emd, timer=timer)
     wall = time.time() - start
-    if results:
-        print("\n=== Results ===")
-        summarize(results)
+    if args.timings:
+        print()
+        timer.report()
     print(f"\n{len(flags)} objects in {wall:.1f}s "
           f"({len(flags) / wall * 60:.2f} objects/min)")
 

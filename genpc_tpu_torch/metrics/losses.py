@@ -50,3 +50,35 @@ def chamfer_partial_l2(p1, p2):
 def emd_loss(p1, p2, eps: float = 0.005, iters: int = 50):
     d, _ = emd_auction(p1, p2, eps=eps, iters=iters)
     return torch.sqrt(torch.clamp_min(d, 0.0)).mean()
+
+
+class CompletionLoss:
+    """Drop-in for the reference's Completionloss(loss_func=...): 'cd_l1',
+    'cd_l2' or 'emd' (``apml_loss`` is not ported)."""
+
+    def __init__(self, loss_func: str = "cd_l1",
+                 emd_eps: float = 0.005, emd_iters: int = 50):
+        self.loss_func = loss_func
+        self.emd_eps = emd_eps
+        self.emd_iters = emd_iters
+        if loss_func == "cd_l1":
+            self.metric = chamfer_l1
+            self.partial_matching = chamfer_partial_l1
+        elif loss_func == "cd_l2":
+            self.metric = chamfer_l2
+            self.partial_matching = chamfer_partial_l2
+        elif loss_func == "emd":
+            self.metric = self.emd_loss
+        else:
+            raise ValueError(f"loss function {loss_func} not supported")
+
+    chamfer_l1 = staticmethod(chamfer_l1)
+    chamfer_l2 = staticmethod(chamfer_l2)
+    chamfer_partial_l1 = staticmethod(chamfer_partial_l1)
+    chamfer_partial_l2 = staticmethod(chamfer_partial_l2)
+
+    def emd_loss(self, p1, p2):
+        return emd_loss(p1, p2, eps=self.emd_eps, iters=self.emd_iters)
+
+    def get_loss(self, gen, gt):
+        return self.metric(gen, gt)

@@ -1,0 +1,111 @@
+"""Evaluation protocols: per-object CD/EMD, UHD, and suite drivers
+(counterpart of genpc_tpu/metrics/metric.py).
+
+  * ``evaluate_pair`` ≡ main.py:11-36 — FPS both clouds to 16384 (kernel
+    K2, one object a launch), CD-ℓ1 = (mean√d1+mean√d2)/2 (K1) and
+    auction EMD (K3; eps 0.005, iters 50).
+  * ``uhd`` ≡ metric.py:105-132 — unidirectional Hausdorff distance
+    (max, or a percentile, of the partial's NN distances into the
+    completion; K1).
+  * ``evaluate_workspace`` ≡ metric.py:10-48 — score a workspace's fused
+    cloud against its GT, optionally with the GT turned 180° about x.
+  * ``summarize`` — the per-category print and averages of main.py.
+
+Inputs are numpy; ``device`` is where the work runs (the card unless
+the caller asks for the CPU).  Not ported: ``evaluate_mesh`` (it needs
+io/glb) and the reference's sequence-parallel chamfer over a device
+mesh with an ``sp`` axis; both raise.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from genpc_tpu_torch.categories import get_category
+from genpc_tpu_torch.geometry.transforms import get_rotate_matrix
+from genpc_tpu_torch.io.ply import load_ply
+from genpc_tpu_torch.metrics.losses import CompletionLoss
+from genpc_tpu_torch.ops.chamfer import nearest_neighbor
+from genpc_tpu_torch.ops.fps import farthest_point_sample
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def evaluate_pair(pred: np.ndarray, gt: np.ndarray, num_points: int = 16384,
+                  emd_eps: float = 0.005, emd_iters: int = 50,
+                  with_emd: bool = True, mesh=None,
+                  device: torch.device | str = "cuda") -> Dict[str, float]:
+    """FPS both to num_points, return {'cd': ..., 'emd': ...} (raw scale)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "evaluate_pair over a device mesh is not ported (ROADMAP: "
+            "multi-GPU data parallelism)")
+    p, _ = farthest_point_sample(_t(pred, device), num_points)
+    g, _ = farthest_point_sample(_t(gt, device), num_points)
+    out = {"cd": float(CompletionLoss("cd_l1").get_loss(p, g))}
+    if with_emd:
+        out["emd"] = float(CompletionLoss("emd", emd_eps=emd_eps,
+                                          emd_iters=emd_iters).get_loss(p, g))
+    return out
+
+
+def uhd(partial: np.ndarray, completion: np.ndarray,
+        percentile: float = 100.0,
+        device: torch.device | str = "cuda") -> float:
+    """Unidirectional Hausdorff distance partial -> completion
+    (reference: metric.py:105-132, scipy cdist max-of-min)."""
+    d2, _ = nearest_neighbor(_t(partial, device), _t(completion, device))
+    d = np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
+    if percentile >= 100.0:
+        return float(d.max())
+    return float(np.percentile(d, percentile))
+
+
+def evaluate_workspace(flag: str, workspace_root: str, gt_dir: str,
+                       generative_model: str = "synthetic",
+                       rotate_gt_x180: bool = False,
+                       with_emd: bool = True,
+                       device: torch.device | str = "cuda"
+                       ) -> Optional[Dict[str, float]]:
+    """Score workspace/{flag}/{flag}_fused.ply against gt_dir/{flag}.ply."""
+    fused_path = os.path.join(workspace_root, flag, f"{flag}_fused.ply")
+    gt_path = os.path.join(gt_dir, f"{flag}.ply")
+    if not (os.path.exists(fused_path) and os.path.exists(gt_path)):
+        return None
+    pred, _ = load_ply(fused_path)
+    gt, _ = load_ply(gt_path)
+    if rotate_gt_x180:
+        gt = gt @ get_rotate_matrix("x", 180).T
+    return evaluate_pair(pred.astype(np.float32), gt.astype(np.float32),
+                         with_emd=with_emd, device=device)
+
+
+def evaluate_mesh(pred_mesh, gt_points: np.ndarray, num_points: int = 16384,
+                  normalize_by_gt_bbox: bool = True,
+                  with_emd: bool = False) -> Dict[str, float]:
+    """Mesh-vs-cloud evaluation: needs io/glb's surface sampling."""
+    raise NotImplementedError(
+        "evaluate_mesh needs io/glb, which is not ported (ROADMAP: neural "
+        "backends, io/glb and meshes)")
+
+
+def summarize(results: Dict[str, Dict[str, float]]) -> Dict[str, float]:
+    """Per-category print + averages (reference: main.py:70-78)."""
+    if not results:
+        return {}
+    for flag, m in results.items():
+        emd_txt = f", EMD: {m['emd']*100:.3f}" if "emd" in m else ""
+        print(f"Category: {get_category(flag)}, CD: {m['cd']*100:.3f}"
+              f"{emd_txt}")
+    avg = {k: float(np.mean([m[k] for m in results.values() if k in m]))
+           for k in next(iter(results.values()))}
+    print(f"Average CD: {avg['cd']*100:.6f}")
+    if "emd" in avg:
+        print(f"Average EMD: {avg['emd']*100:.6f}")
+    return avg

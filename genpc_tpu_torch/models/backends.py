@@ -3,7 +3,8 @@ genpc_tpu/models/backends.py).
 
 Only the model-free synthetic backends are ported.  The neural backends
 (ControlNet/T2I-Adapter, FLUX, Qwen-Image-Edit, RMBG, InstantMesh,
-TRELLIS, SF3D) are ROADMAP queue 1, item 8; asking for one raises.
+TRELLIS, SF3D) wait for the ROADMAP item "neural backends"; asking for
+one raises.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ def _not_ported(stage: str, name: str):
     if name in _NEURAL[stage]:
         return NotImplementedError(
             f"{stage} backend {name!r} is not ported to genpc_tpu_torch yet "
-            f"(ROADMAP queue 1, item 8: neural backends); use 'synthetic'")
+            f"(ROADMAP: neural backends); use 'synthetic'")
     return ValueError(f"unknown {stage} backend {name!r}")
 
 

@@ -286,6 +286,20 @@ class SyntheticImage23D:
         mirrored, mir_cols = self._apply_mirror(pts, cols, plan)
         return self._assemble(flag, pts, cols, mirrored, mir_cols, viewpoint)
 
+    def __call__(self, flag: str, image_nobg: np.ndarray,
+                 partial_xyz: np.ndarray | None = None,
+                 partial_rgb: np.ndarray | None = None,
+                 viewpoint: np.ndarray | None = None,
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """One object's completion (the per-object stage 2): its own
+        symmetry search, then the mirror and the visual-hull filter."""
+        if partial_xyz is None:
+            raise ValueError("synthetic image23d needs the partial cloud")
+        pts = np.asarray(partial_xyz, np.float32)
+        plan = self.plan_symmetry_batched([pts], device=self.device)[0]
+        return self.complete_with_plan(flag, pts, partial_rgb, viewpoint,
+                                       plan)
+
     def _assemble(self, flag, pts, cols, mirrored, mir_cols, viewpoint
                   ) -> Tuple[np.ndarray, np.ndarray]:
         if mirrored is not None and len(mirrored):

@@ -114,7 +114,8 @@ def _launch(pts: torch.Tensor, k: int, start: int,
     min_d = (torch.empty((b, n), dtype=torch.float32, device=pts.device)
              if streamed else None)
     out = torch.empty((b, k), dtype=torch.int32, device=pts.device)
-    with torch.cuda.device(pts.device):
+    with torch.cuda.device(pts.device), \
+            _kernels.traced(fps_batched, (b, n, k)):
         rc = _kernels.lib().genpc_fps(
             pts.data_ptr(), _kernels.ptr(min_d), out.data_ptr(), b, n, k,
             start, plan["cluster"], plan["slice"], plan["ppt"],
@@ -125,3 +126,4 @@ def _launch(pts: torch.Tensor, k: int, start: int,
 
 
 fps_batched.launches = 0
+fps_batched.trace = None

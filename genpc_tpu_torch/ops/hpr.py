@@ -1,18 +1,42 @@
-"""Point-cloud visibility by z-buffer (counterpart of genpc_tpu/ops/hpr.py).
+"""Point-cloud visibility (counterpart of genpc_tpu/ops/hpr.py).
 
-``visible_points_zbuffer`` projects the cloud toward each viewpoint,
-takes the per-pixel nearest depth with a ``scatter_reduce_("amin")``
-over a (2·splat+1)² footprint, and calls a point visible when its depth
-is within ``tol``·depth-range of its own pixel's nearest depth.
-``select_best_view`` is the reference's coarse-to-exact selector.  The
-exact Katz HPR (scipy convex hull) is not ported: the slice runs
-``visibility='zbuffer'``.
+  * ``hidden_point_removal`` — exact Katz HPR (open3d semantics):
+    spherical flip in float64 numpy plus a scipy convex hull, on the
+    host (``visibility='hpr'``).
+  * ``visible_points_zbuffer`` projects the cloud toward each viewpoint,
+    takes the per-pixel nearest depth with a ``scatter_reduce_("amin")``
+    over a (2·splat+1)² footprint, and calls a point visible when its
+    depth is within ``tol``·depth-range of its own pixel's nearest depth
+    (``visibility='zbuffer'``, the default).
+  * ``select_best_view`` is the reference's coarse-to-exact selector;
+    ``visible_points`` dispatches between the two tests.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def hidden_point_removal(points: np.ndarray, viewpoint: np.ndarray,
+                         radius_param: float) -> np.ndarray:
+    """Exact Katz spherical-flip HPR; returns a boolean visibility mask.
+
+    Coordinates are flipped about a sphere of radius ``radius_param``
+    centred at the viewpoint; visible points are hull vertices of the
+    flipped set plus the camera."""
+    from scipy.spatial import ConvexHull
+
+    pts = np.asarray(points, np.float64) - np.asarray(viewpoint, np.float64)
+    norms = np.linalg.norm(pts, axis=1, keepdims=True)
+    norms = np.maximum(norms, 1e-12)
+    flipped = pts + 2.0 * (radius_param - norms) * (pts / norms)
+    cloud = np.concatenate([flipped, np.zeros((1, 3))], axis=0)
+    hull = ConvexHull(cloud)
+    mask = np.zeros(len(points), bool)
+    vis = hull.vertices
+    mask[vis[vis < len(points)]] = True
+    return mask
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -86,3 +110,24 @@ def select_best_view(points: torch.Tensor, viewpoints: torch.Tensor,
                                    res=auto_zbuffer_res(points.shape[0]),
                                    splat=1)
     return cand[torch.argmax(exact.sum(-1))]
+
+
+def visible_points(points, viewpoints, radius_param: float,
+                   method: str = "zbuffer", res: int | None = None,
+                   device: torch.device | str = "cuda") -> np.ndarray:
+    """Dispatch: 'zbuffer' (on ``device``, all views at once) or 'hpr'
+    (exact, a host loop over the views).  Returns a bool array [V, N]
+    (reference: DepthPrompting.py:273-290)."""
+    viewpoints = np.atleast_2d(np.asarray(viewpoints, np.float64))
+    if method == "zbuffer":
+        if res is None:
+            res = auto_zbuffer_res(len(points))
+        f32 = dict(dtype=torch.float32, device=device)
+        return visible_points_zbuffer(
+            torch.as_tensor(np.asarray(points), **f32),
+            torch.as_tensor(viewpoints, **f32), res=res).cpu().numpy()
+    pts = np.asarray(points)
+    out = np.zeros((len(viewpoints), len(pts)), bool)
+    for i, vp in enumerate(viewpoints):
+        out[i] = hidden_point_removal(pts, vp, radius_param)
+    return out

@@ -5,7 +5,11 @@ genpc_tpu/parallel/batched_runner.py).
 (``make_stage1_core``), generates images, runs stage 2, registers each
 completion to its partial and fuses the two (``batched_reg``), and
 scores every object with CD-ℓ1 and auction EMD after FPS to
-``metric_points``.
+``metric_points``.  ``run_batched_lidar`` runs the same stages over
+Waymo-layout LiDAR scans, which have no GT: it scores each object by
+the partial->fused unidirectional Hausdorff distance (UHD), and with
+``holdout_wedge_deg`` withholds an azimuthal wedge of each scan and
+scores the held-out points against the fused cloud.
 
 Stage 3 registers by default (``trust_aligned_completion=False``, the
 reference's headline path): batched pose optimisation (4 starts × 200
@@ -20,8 +24,7 @@ fixed resampling, the undo chain of transforms) is numpy, as in the
 reference.
 
 Not ported: device meshes (``cfg.mesh_shape``) and mesh-producing
-backends raise ``NotImplementedError``; the reference's
-``fusion_debug`` instrumentation waits for the Waymo slice.
+backends raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 
 from genpc_tpu_torch.geometry.normalize import normalize_points
 from genpc_tpu_torch.io.ply import load_xyz
-from genpc_tpu_torch.ops.chamfer import chamfer_nn
+from genpc_tpu_torch.ops.chamfer import _nn, chamfer_nn, nearest_neighbor
 from genpc_tpu_torch.ops.emd import emd_auction
 from genpc_tpu_torch.ops.fps import pad_repeat
 from genpc_tpu_torch.ops.fps_kernel import fps_batched
@@ -200,8 +203,8 @@ def _fuse_aligned(cfg, arts, device) -> None:
 
 
 def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
-                mesh=None, timings: Optional[Dict[str, float]] = None
-                ) -> None:
+                mesh=None, timings: Optional[Dict[str, float]] = None,
+                fusion_debug: Optional[Dict[str, dict]] = None) -> None:
     """Stage 3 for a batch of objects; writes fused clouds into arts.
 
     With ``trust_aligned_completion`` the completions their backend
@@ -212,10 +215,12 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     batch and the outlier masks (``fusion.fuse_clouds_batched``).
     timings (optional) receives the walls of the registration steps
     (reg_prep, reg_pose, reg_coarse, reg_fine, reg_refine, reg_fusion),
-    each ending in a device synchronisation."""
+    each ending in a device synchronisation.  fusion_debug (optional
+    dict) receives per registered flag the attribution of the
+    partial->fused UHD across the fusion's steps (``_fusion_report``)."""
     if mesh is not None:
         raise NotImplementedError("device meshes are not ported "
-                                  "(ROADMAP queue 1, item 9)")
+                                  "(ROADMAP: multi-GPU data parallelism)")
     device = resolve_device(cfg.device)
     if bool(cfg.get("trust_aligned_completion", False)):
         _fuse_aligned(cfg, [a for a in arts if a.complete_aligned], device)
@@ -249,7 +254,7 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
         if art.complete_xyz is None:
             raise NotImplementedError(
                 "mesh-producing image-to-3D backends are not ported "
-                "(ROADMAP queue 1, item 3)")
+                "(ROADMAP: neural backends, io/glb and meshes)")
         tgt, tgt_rgb = resample_fixed(art.complete_xyz, glb_n,
                                       art.complete_rgb)
         tgt = tgt.astype(np.float32)
@@ -325,14 +330,55 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     mark("reg_refine")
 
     # dedup + concat + fps + denoise (one FPS launch over the batch)
+    prov = [] if fusion_debug is not None else None
     fused = fuse_clouds_batched(
         final_s, final_t, src_rgbs, tgt_rgbs,
         num_points=int(cfg.get("fused_points", 20000)),
         denoise_neighbors=int(cfg.get("denoise_neighbors", 20)),
-        denoise_std_ratio=float(cfg.get("denoise_std", 2.5)), device=device)
+        denoise_std_ratio=float(cfg.get("denoise_std", 2.5)), device=device,
+        provenance=prov)
     for art, (pts, cols) in zip(arts, fused):
         art.fused_xyz, art.fused_rgb = pts, cols
+    if fusion_debug is not None:
+        for i, art in enumerate(arts):
+            fusion_debug[art.flag] = _fusion_report(
+                art, final_s[i], final_t[i], prov[i], device)
     mark("reg_fusion")
+
+
+def _uhd_max(a: np.ndarray, b: np.ndarray, device) -> float:
+    d2, _ = nearest_neighbor(
+        torch.as_tensor(np.asarray(a, np.float32), device=device),
+        torch.as_tensor(np.asarray(b, np.float32), device=device))
+    return float(np.sqrt(np.maximum(d2.cpu().numpy(), 0)).max())
+
+
+def _fusion_report(art: ObjectArtifacts, s: np.ndarray, t: np.ndarray,
+                   prov: dict, device) -> dict:
+    """One object's fusion attribution (the reference's PED diagnosis):
+    how far the registered completion sits from the partial, the UHD
+    from the partial to the concatenation, to the FPS sample and to the
+    fused cloud, and which share of the partial's and of the generated
+    points the FPS and the outlier mask kept."""
+    part = np.asarray(art.xyz, np.float32) if art.xyz is not None else s
+    ds, _ = nearest_neighbor(torch.as_tensor(s, device=device),
+                             torch.as_tensor(t, device=device))
+    fp, mask = prov["from_partial"], prov["mask"]
+    return {
+        "reg_residual_cd_x100": round(float(np.sqrt(np.maximum(
+            ds.cpu().numpy(), 0)).mean()) * 100, 3),
+        "uhd_x100_partial_to_concat": round(
+            _uhd_max(part, prov["concat"], device) * 100, 3),
+        "uhd_x100_partial_to_postfps": round(
+            _uhd_max(part, prov["sampled"], device) * 100, 3),
+        "uhd_x100_partial_to_fused": round(
+            _uhd_max(part, art.fused_xyz, device) * 100, 3),
+        "partial_frac_after_fps": round(float(fp.mean()), 4),
+        "partial_kept_by_outlier_mask": round(float(mask[fp].mean()), 4)
+        if fp.any() else None,
+        "generated_kept_by_outlier_mask": round(float(mask[~fp].mean()), 4)
+        if (~fp).any() else None,
+    }
 
 
 def _release_backend(owner, attr: str) -> None:
@@ -378,7 +424,8 @@ def run_batched(cfg, flags: List[str], data_dir: str,
     DepthPrompting."""
     if cfg.get("mesh_shape"):
         raise NotImplementedError("cfg.mesh_shape: device meshes are not "
-                                  "ported (ROADMAP queue 1, item 9)")
+                                  "ported (ROADMAP: multi-GPU data "
+                                  "parallelism)")
     device = resolve_device(cfg.device)
     t_last = [time.time()]
 
@@ -457,6 +504,91 @@ def run_batched(cfg, flags: List[str], data_dir: str,
             if with_emd:
                 results[flag]["emd"] = float(emd[i])
     mark("metric")
+    return results
+
+
+def _holdout_wedge(xyz: np.ndarray, wedge_deg: float) -> np.ndarray:
+    """The held-out wedge of a scan (reference: batched_runner.py:745-760):
+    the points within wedge_deg/2 of the azimuth opposite the densest
+    10° bin about the scan's centroid, so that the rest still anchors the
+    viewpoint selection."""
+    c = xyz.mean(0)
+    az = np.degrees(np.arctan2(xyz[:, 1] - c[1], xyz[:, 0] - c[0]))
+    hist, edges = np.histogram(az, bins=36, range=(-180, 180))
+    center = (edges[hist.argmax()] + 5.0 + 180.0)
+    d = (az - center + 180.0) % 360.0 - 180.0
+    return np.abs(d) < wedge_deg / 2.0
+
+
+def _uhd_batched(partials: List[np.ndarray], fused: List[np.ndarray],
+                 device) -> np.ndarray:
+    """Max-of-min distance of each partial into its fused cloud [B]: one
+    K1 launch over both sides padded by repetition (a duplicate changes
+    neither a row's minimum nor the maximum over rows)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    d2, _ = _nn(torch.as_tensor(pad_repeat(partials), **f32),
+                torch.as_tensor(pad_repeat(fused), **f32))
+    return np.sqrt(np.maximum(d2.cpu().numpy(), 0.0)).max(axis=1)
+
+
+def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
+                      batch: Optional[int] = None,
+                      holdout_wedge_deg: float = 0.0,
+                      fusion_debug: Optional[Dict[str, dict]] = None
+                      ) -> Dict[str, Dict[str, float]]:
+    """Waymo LiDAR pipeline with batched stages (reference: main_lidar.py;
+    genpc_tpu/parallel/batched_runner.py:713-815), on cfg.device.
+
+    Scans load from data_dir/category and, with no GT, each object's
+    quality is the partial->completion UHD (reference: metric.py:105-132).
+
+    holdout_wedge_deg > 0 withholds an azimuthal wedge of each scan from
+    the pipeline (when the rest keeps at least min(1024, n // 2) points:
+    PED scans hold ~350-500), and ``holdout_uhd`` is the max distance
+    from the held-out points to the fused completion: a completion
+    quality signal the partial->fused UHD cannot give, since the fused
+    cloud contains the partial."""
+    if cfg.get("mesh_shape"):
+        raise NotImplementedError("cfg.mesh_shape: device meshes are not "
+                                  "ported (ROADMAP: multi-GPU data "
+                                  "parallelism)")
+    device = resolve_device(cfg.device)
+    dp = DepthPrompting(cfg)
+    sa = ScaleAdapter(cfg)
+    n_in = int(cfg.get("input_points", 65536))
+
+    arts = []
+    heldout: Dict[str, np.ndarray] = {}
+    for flag in flags:
+        xyz, rgb = load_xyz(os.path.join(data_dir, category, f"{flag}.ply"))
+        if holdout_wedge_deg > 0.0:
+            held = _holdout_wedge(xyz, holdout_wedge_deg)
+            keep_min = min(1024, len(xyz) // 2)
+            if held.any() and (~held).sum() >= keep_min:
+                heldout[flag] = xyz[held].astype(np.float32)
+                xyz, rgb = xyz[~held], rgb[~held]
+        rng = np.random.default_rng(0)
+        idx = rng.choice(len(xyz), n_in, replace=len(xyz) < n_in)
+        arts.append(ObjectArtifacts(flag=flag, xyz=xyz[idx], rgb=rgb[idx]))
+
+    batched_stage1(cfg, arts, dp.viewpoints, dp=dp)
+    _generate_images(cfg, dp, arts)
+    _release_backend(dp, "depth2image")
+    sa.scale_adapter_batch(arts)
+    _release_backend(sa, "image23d")
+    batch = batch or len(arts)
+    for i in range(0, len(arts), batch):
+        batched_reg(cfg, arts[i:i + batch], fusion_debug=fusion_debug)
+
+    h = _uhd_batched([a.xyz for a in arts], [a.fused_xyz for a in arts],
+                     device)
+    results = {a.flag: {"uhd": float(h[i])} for i, a in enumerate(arts)}
+    if heldout:
+        held_arts = [a for a in arts if a.flag in heldout]
+        hu = _uhd_batched([heldout[a.flag] for a in held_arts],
+                          [a.fused_xyz for a in held_arts], device)
+        for i, a in enumerate(held_arts):
+            results[a.flag]["holdout_uhd"] = float(hu[i])
     return results
 
 
@@ -552,7 +684,7 @@ def batched_stage1(cfg, arts: List[ObjectArtifacts],
     """Run the Stage-1 core over a batch; fill the artifacts' fields."""
     if cfg.get("inpainter", "jax") != "jax":
         raise NotImplementedError("only the diffusion inpainter ('jax') is "
-                                  "ported (ROADMAP queue 1)")
+                                  "ported (ROADMAP: other inpainters)")
     device = resolve_device(cfg.device)
     core = core or make_stage1_core(cfg, viewpoints, device=device)
     xyz = torch.as_tensor(np.stack([a.xyz for a in arts]),

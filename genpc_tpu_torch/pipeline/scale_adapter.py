@@ -1,9 +1,13 @@
 """Stage 2 — Scale Adapter: background removal, point colouring,
-image-to-3D (counterpart of genpc_tpu/pipeline/scale_adapter.py).
+image-to-3D (counterpart of genpc_tpu/pipeline/scale_adapter.py;
+reference: ScaleAdapter.py:15-97).
 
-Only the synthetic image-to-3D backend is ported, through the batched
-``scale_adapter_batch`` (its symmetry planning runs for all objects in
-two nearest-neighbour launches).  Workspace saving is not ported.
+``scale_adapter`` runs one object (``main.run_pipeline``,
+``main_lidar.run_lidar``); ``scale_adapter_batch`` runs a batch, its
+symmetry planning for all objects in two nearest-neighbour launches.
+``color_point`` samples the generated image at its true resolution with
+one vectorised gather.  Only the synthetic image-to-3D backend is
+ported; a mesh-producing backend raises in ``get_image23d``.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import numpy as np
 
 from genpc_tpu_torch.models.backends import get_image23d, get_rembg
 from genpc_tpu_torch.models.synthetic import SyntheticImage23D
-from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
+from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts, Workspace
 
 
 class ScaleAdapter:
@@ -22,6 +26,7 @@ class ScaleAdapter:
         self.owns_image23d = image23d is None
         self.rembg = rembg or get_rembg(cfg.rembg_model, cfg)
         self.image23d = image23d or get_image23d(cfg.generative_model, cfg)
+        self.workspace = Workspace(cfg.output_path, cfg.generative_model)
 
     def remove_bg(self, art: ObjectArtifacts) -> ObjectArtifacts:
         art.image_nobg = np.asarray(self.rembg(art.image))
@@ -41,17 +46,30 @@ class ScaleAdapter:
         art.color_rgb = img[rows, cols, :3].astype(np.float32)
         return art
 
+    def img2shape(self, art: ObjectArtifacts) -> ObjectArtifacts:
+        art.complete_xyz, art.complete_rgb = self.image23d(
+            art.flag, art.image_nobg, partial_xyz=art.color_xyz,
+            partial_rgb=art.color_rgb, viewpoint=art.viewpoint)
+        art.complete_aligned = bool(getattr(self.image23d,
+                                            "output_aligned", False))
+        return art
+
+    def scale_adapter(self, art: ObjectArtifacts) -> ObjectArtifacts:
+        """Full Stage 2 for one object (reference: ScaleAdapter.py:78-86)."""
+        self.remove_bg(art)
+        self.color_point(art)
+        self.img2shape(art)
+        if self.cfg.save:
+            self.workspace.save_stage2(art)
+        return art
+
     def scale_adapter_batch(self, arts) -> None:
         """Stage 2 for a batch: per-object matting/colouring (host) +
         batched symmetry planning."""
-        if self.cfg.get("save", False):
-            raise NotImplementedError(
-                "workspace saving is not ported to genpc_tpu_torch yet "
-                "(ROADMAP queue 1); run with save=False")
         if not isinstance(self.image23d, SyntheticImage23D):
             raise NotImplementedError(
                 "only the synthetic image-to-3D backend is ported "
-                "(ROADMAP queue 1, item 8)")
+                "(ROADMAP: neural backends)")
         for art in arts:
             self.remove_bg(art)
             self.color_point(art)
@@ -63,3 +81,12 @@ class ScaleAdapter:
                     art.flag, art.color_xyz, art.color_rgb,
                     art.viewpoint, plan)
             art.complete_aligned = True
+        if self.cfg.save:
+            for art in arts:
+                self.workspace.save_stage2(art)
+
+    def scale_reg(self, art: ObjectArtifacts) -> ObjectArtifacts:
+        """Stage 3 hand-off (reference: ScaleAdapter.py:74-75)."""
+        from genpc_tpu_torch.pipeline.registration import reg
+        return reg(self.cfg, art, cd_inv_weight=0.5, diff_init=True,
+                   reg_fine_xyz=True)

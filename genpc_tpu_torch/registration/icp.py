@@ -267,20 +267,23 @@ def _coarse_one(scale: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
 
 
 def coarse_scale_sweep(source, target, scales=None,
-                       cd_inv_weight: float = 0.5
+                       cd_inv_weight: float = 0.5,
+                       device: torch.device | str = "cuda"
                        ) -> Tuple[float, np.ndarray, float]:
     """Best isotropic scale by batched ICP for one pair [N,3]/[M,3]
-    (reference: reg_xyz.py:146-173): (best_scale, T 4x4, best_loss)."""
+    (reference: reg_xyz.py:146-173): (best_scale, T 4x4, best_loss).
+    Runs on ``device`` (the card unless the caller asks for the CPU)."""
     if scales is None:
         scales = np.linspace(1.5, 0.8, 11)
-    src = torch.as_tensor(np.asarray(source), dtype=torch.float32)[None]
-    tgt = torch.as_tensor(np.asarray(target), dtype=torch.float32,
-                          device=src.device)[None]
-    sc = torch.as_tensor(np.asarray(scales), dtype=torch.float32)
+    f32 = dict(dtype=torch.float32, device=device)
+    src = torch.as_tensor(np.asarray(source), **f32)[None]
+    tgt = torch.as_tensor(np.asarray(target), **f32)[None]
+    sc = torch.as_tensor(np.asarray(scales), **f32)
     cds, Ts = _coarse_one(sc, src, tgt, cd_inv_weight,
-                          obj_index=torch.zeros(len(sc), dtype=torch.int32))
+                          obj_index=torch.zeros(len(sc), dtype=torch.int32,
+                                                device=src.device))
     best = int(torch.argmin(cds))
-    return float(scales[best]), Ts[best].numpy(), float(cds[best])
+    return float(scales[best]), Ts[best].cpu().numpy(), float(cds[best])
 
 
 def _fine_score(scales3: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
@@ -303,23 +306,26 @@ def iterative_scale_search(source, target,
                            scale_steps: int = 10,
                            cd_inv_weight: float = 0.0,
                            batch: int = 125,
+                           device: torch.device | str = "cuda",
                            ) -> Tuple[np.ndarray, float, np.ndarray]:
     """Per-axis scale grid for one pair (reference: reg_xyz.py:60-96):
-    (S 4x4, best_loss, T 4x4)."""
+    (S 4x4, best_loss, T 4x4).  Runs on ``device`` (the card unless the
+    caller asks for the CPU)."""
     axes = [np.linspace(lo, hi, scale_steps) for lo, hi in scale_ranges]
     grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
-    src = torch.as_tensor(np.asarray(source), dtype=torch.float32)[None]
-    tgt = torch.as_tensor(np.asarray(target), dtype=torch.float32)[None]
+    f32 = dict(dtype=torch.float32, device=device)
+    src = torch.as_tensor(np.asarray(source), **f32)[None]
+    tgt = torch.as_tensor(np.asarray(target), **f32)[None]
     best_cd, best_scales = np.inf, None
     for i in range(0, len(grid), batch):
-        chunk = torch.as_tensor(grid[i:i + batch], dtype=torch.float32)
-        cds = _fine_score(chunk, src, tgt, cd_inv_weight)[0].numpy()
+        chunk = torch.as_tensor(grid[i:i + batch], **f32)
+        cds = _fine_score(chunk, src, tgt, cd_inv_weight)[0].cpu().numpy()
         j = int(cds.argmin())
         if cds[j] < best_cd:
             best_cd = float(cds[j])
             best_scales = grid[i + j]
-    sc = torch.as_tensor(best_scales, dtype=torch.float32)
+    sc = torch.as_tensor(best_scales, **f32)
     T, _, _ = icp(src * sc, tgt, 0.075, iters=15)
     S = np.eye(4)
     S[0, 0], S[1, 1], S[2, 2] = best_scales
-    return S, best_cd, T[0].numpy()
+    return S, best_cd, T[0].cpu().numpy()

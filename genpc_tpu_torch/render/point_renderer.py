@@ -177,8 +177,8 @@ def render_points(points: torch.Tensor, colors: torch.Tensor, radius,
     not on the pose path."""
     if method != "slots":
         raise NotImplementedError(
-            f"render method {method!r} is not ported (ROADMAP queue 4); "
-            f"use method='slots'")
+            f"render method {method!r} is not ported (ROADMAP: "
+            f"footprint-scatter renderer); use method='slots'")
     single = points.ndim == 2
     pts = points[None] if single else points
     cols = colors.to(torch.float32)

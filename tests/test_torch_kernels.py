@@ -225,6 +225,35 @@ def test_k2_pad_repeated_batch_equals_per_object(dev):
         assert row.max().item() < len(c)
 
 
+@pytest.mark.parametrize("n,k", [(65536, 10000), (65536, 16384)])
+def test_k2_ped_duplicate_shape_equals_plain(dev, n, k):
+    # a PED-sized scan (400 unique points) drawn with replacement to the
+    # pipeline's 65,536 input points, one object: after 400 picks every
+    # minimum distance is 0, so each later pick is a tie across all the
+    # cluster's blocks, which the first index wins (index 0); the plan's
+    # cluster (4) and a forced 16
+    r = np.random.default_rng(17)
+    base = r.uniform(-0.5, 0.5, (400, 3)).astype(np.float32)
+    p = torch.tensor(base[r.choice(400, n, replace=True)][None], device=dev)
+    assert fps_plan(n)["cluster"] == 4
+    want = fps_batched_plain(p, k)
+    assert len(set(want[0, :400].tolist())) == 400
+    assert (want[0, 400:] == 0).all()
+    assert torch.equal(fps_batched(p, k), want)
+    assert torch.equal(fps_launch(p, k, 0, fps_plan(n, 16)), want)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 16384, 16384), (1, 4096, 2048)])
+def test_k3_single_object_bitwise_equals_plain_direct(dev, b, n, m):
+    # the per-object metric's bid (B = 1), with and without the auction's
+    # spatial row order: bitwise the plain version's
+    x1, x2 = _rand(n, b, n, 3, dev=dev), _rand(m + 1, b, m, 3, dev=dev)
+    pr = _rand(n + m + 1, b, m, dev=dev) * 0.1
+    want = bid_plain_direct(x1, x2, pr)
+    assert _bid_equal(bid(x1, x2, pr), want)
+    assert _bid_equal(bid(x1, x2, pr, order=spatial_order(x1)), want)
+
+
 def test_k3_matches_plain(dev):
     # direct form in the kernel, expansion in the plain version: >= 99.5 %
     # identical bids, values within 2e-4 (the reference kernel contract)
@@ -403,6 +432,21 @@ def test_k4_k5_pose_shapes_strided_and_contiguous(dev, res, n):
     assert torch.equal(g, _check_k5(dense, slot_orig, cots, dmax, res, 2,
                                     order))
     assert (slot_orig < 6 * res * res).sum() < slot_orig.numel()
+
+
+@pytest.mark.parametrize("res,n", [(224, 2048), (112, 512)])
+def test_k4_k5_single_object_pose_shapes(dev, res, n):
+    # R = 4 renders (one object's four starts, the per-object pose path)
+    # at both pose resolutions: bit-equal to the twins and repeating, on
+    # the strided view and its contiguous copy
+    table, slot_orig, cots, order = _tables(dev, r=4, n=n, res=res,
+                                            spread=0.08, behind=5)
+    dmax = _check_k4(table, res, 2)
+    g = _check_k5(table, slot_orig, cots, dmax, res, 2, order)
+    dense = table.contiguous()
+    assert torch.equal(dmax, _check_k4(dense, res, 2))
+    assert torch.equal(g, _check_k5(dense, slot_orig, cots, dmax, res, 2,
+                                    order))
 
 
 def _filled_table(dev, r, res, f, seed=12, slots=6):

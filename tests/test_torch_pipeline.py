@@ -249,12 +249,19 @@ def test_synthetic_depth2image_matches():
 
 
 def test_import_leaves_jax_out():
-    # the port and every module in it import no jax (only tests do)
+    # the port and every module in it, the per-object and Waymo entry
+    # points among them, import no jax (only tests do)
     code = (
         "import importlib, pkgutil, sys\n"
         "import genpc_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'genpc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = ['main', 'main_lidar', 'metrics.metric', 'tracing',\n"
+        "        'pipeline.artifacts', 'pipeline.depth_prompting',\n"
+        "        'pipeline.registration', 'pipeline.scale_adapter']\n"
+        "missing = [n for n in need if 'genpc_tpu_torch.' + n\n"
+        "           not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'genpc_tpu'))\n"
         "assert not bad, bad\n")
