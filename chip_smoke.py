@@ -9,42 +9,54 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build: compiles the CUDA kernels from genpc_tpu_torch/csrc into
      build/ (one nvcc per source, in parallel) and prints the build time;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it (K1 at every launch class of the
-     registration pass, K1_SHAPES, with its launch plan, distances
-     bit-equal, argmins the first index, and the count of tied minima;
-     K2 at the metric's and at the fusion's, with its cluster size and
-     how many clusters fit at once; K3 bitwise equal to
-     bid_plain_direct and within the reference contract of bid_plain;
-     K4 and K5 bit-equal at both pose resolutions on the table as
+     shapes the main paths give it: K1 at every launch class of the
+     batched registration pass, of the per-object pass, of the Waymo
+     pass over 8 scans and of its UHD (K1_SHAPES), with its launch plan,
+     distances bit-equal, argmins the first index, and the count of tied
+     minima; K2 at the batched metric's and fusion's shapes, at one
+     object's and at the Waymo pass's, and at the PED shape (65,536
+     draws of 400 points, a tie at every late pick), the exact
+     sequence, with its cluster size and how many clusters fit at once;
+     K3 at 13 objects and at one, bitwise equal to bid_plain_direct and
+     within the reference contract of bid_plain; K4 and K5 bit-equal at
+     both pose resolutions for R = 52, 4 and 32 renders, on the table as
      _build_table returns it, on its contiguous copy and on a table with
-     every entry present, timed on the contiguous one):
-     parity, the kernel's, the plain version's and (where one exists) a
-     library call's times (CUDA events, warm-up then the median of 1-5,
-     each run enqueued behind a device sleep so that the host's enqueue
-     stays outside the interval),
-     and the least time the card could take for the same work (bytes at
-     3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is larger: the
-     H100 SXM data sheet);
-  4. the main paths over 13 seeded synthetic objects at the Redwood
-     protocol sizes: first a two-object check of each path, card against
-     host, on two data seeds; then the aligned-completion fast path and
-     the registration path (pose optimisation through K4/K5, ICP
-     sweeps), each a warm-up and a timed pass with the launch count of
-     every kernel, the counts set to 0 just before the timed pass and
-     read just after (K2 must launch FPS_LAUNCHES times: one fusion
-     launch over all objects), and a histogram of the K1, K3, K4 and K5
-     launches of the timed pass by shape (K1/K3 (B, N, M), K4 (R, S,
-     res), K5 (R, N, res)): launches and summed time (CUDA events around
-     each call).  The registration path's two passes must give
-     bit-identical per-object CD.
+     every entry present, timed on the contiguous one: parity, the
+     kernel's, the plain version's and (where one exists) a library
+     call's times (CUDA events, warm-up then the median of 1-5, each run
+     enqueued behind a device sleep so that the host's enqueue stays
+     outside the interval), and the least time the card could take for
+     the same work (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s,
+     whichever is larger: the H100 SXM data sheet);
+  4. the main paths: first small-input checks, card against host, on two
+     data seeds (run_batched on both of its paths, run_pipeline, and
+     run_batched_lidar over PED scans with a held-out wedge; the
+     registration steps held step by step); then run_batched over 13
+     seeded synthetic objects at the Redwood protocol sizes, the
+     aligned-completion fast path and the registration path (pose
+     optimisation through K4/K5, ICP sweeps), each a warm-up and a timed
+     pass (K2 must launch FPS_LAUNCHES times: one fusion launch over all
+     objects; the registration passes must give bit-identical CD);
+     run_pipeline (per object, registration on) over PER_OBJECT_FLAGS of
+     them, a warm-up and a timed pass that must repeat bitwise;
+     run_batched_lidar over LIDAR_SCANS generated CAR and PED scans at
+     configs/lidar.yaml's and lidar_ped.yaml's values (CAR: a warm-up, a
+     timed and a held-out pass; PED: a timed and a held-out pass); and
+     main_lidar.run_lidar over 2 CAR scans.  Every timed pass counts the
+     launches of each kernel (the counts set to 0 just before it and read
+     just after; each kernel of the path must launch) and prints a
+     histogram of the K1-K5 launches by shape (K1/K3 (B, N, M), K2 (B, N,
+     k), K4 (R, S, res), K5 (R, N, res)): launches and summed time (CUDA
+     events around each call).
      --profile adds one torch.profiler pass of the registration path and
      prints device time by kernel (kernel rows only), and K1's, K3's,
      K4's and K5's sums.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  The script imports no
-JAX.  It exits non-zero without a CUDA device, and when run from a
-directory that does not hold the genpc_tpu_torch package.
+The second-to-last line is a JSON object with one entry per kernel (its
+launches in the batched registration pass, and by path); the last line
+is ``{"ok": true, "device": {...}}``.  The script imports no JAX.  It
+exits non-zero without a CUDA device, and when run from a directory
+that does not hold the genpc_tpu_torch package.
 """
 
 from __future__ import annotations
@@ -145,8 +157,17 @@ K1_SHAPES = [
     ("refine_1", (1, 2048, 2048), 0),
     ("pose1_512", (4, 512, 512), 1),
     ("pose1_2048", (4, 2048, 2048), 1),
-    # run_batched_lidar over 8 scans: each partial against its fused cloud
+    # run_batched_lidar over 8 scans: the registration classes at B = 8
+    # (the sweeps, 8 x 250 fine candidates, 8 x 11 coarse ICP problems,
+    # the refine, 32 pose renders), each partial against its fused cloud
     # (padded by repetition to the longest), and the held-out wedges
+    ("sweep_8", (2496, 4096, 4096), 8),
+    ("sweep_fine_8", (936, 4096, 4096), 8),
+    ("fine_8", (2000, 2048, 2048), 8),
+    ("icp_8", (88, 2048, 2048), 8),
+    ("refine_8", (8, 2048, 2048), 0),
+    ("pose8_512", (32, 512, 512), 8),
+    ("pose8_2048", (32, 2048, 2048), 8),
     ("uhd", (8, 65536, 20000), 0),
     ("holdout", (8, 1400, 20000), 0),
 ]
@@ -282,8 +303,9 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     shape, at the metric's ([13,163840] -> 16,384), at the fusion's (13
     clouds of the fusion's sizes, up to 65,536 partial + 163,840
     completion points, padded by repetition as ``fuse_clouds_batched``
-    pads them, -> 20,000), at one object's stage 1, metric, fusion and
-    pose subsample, at the Waymo stage 1 (8 scans) and at the PED shape
+    pads them, -> 20,000), at one object's stage 1, metric (GT and
+    prediction), fusion and pose subsample, at the Waymo stage 1 and
+    fusion (8 scans, the fusion's clouds ragged) and at the PED shape
     (65,536 points drawn with replacement from 400, -> 10,000: after 400
     picks every minimum distance is 0, a tie at every pick).  Returns the
     metric shape's numbers and every shape's by name."""
@@ -301,11 +323,16 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     b, n, _ = fusion
     fusion_sizes = n - r.integers(0, 32768, b)
     fusion_sizes[0] = n
+    lidar_sizes = 108925 - r.integers(0, 20000, 8)
+    lidar_sizes[0] = 108925
     shapes = {"metric": ([metric[1]] * metric[0], metric[2]),
               "fusion": (fusion_sizes.tolist(), fusion[2]),
               "stage1_1": ([65536], 10000), "metric_1": ([163840], 16384),
-              "fusion_1": ([229376], 20000), "pose_1": ([2048], 512),
-              "stage1_lidar": ([65536] * 8, 10000), "ped": (None, 10000)}
+              "metric_pred_1": ([19728], 16384),
+              "fusion_1": ([125719], 20000), "pose_1": ([2048], 512),
+              "stage1_lidar": ([65536] * 8, 10000),
+              "fusion_lidar": (lidar_sizes.tolist(), 20000),
+              "ped": (None, 10000)}
     out = {}
     for name, (sizes, k) in shapes.items():
         if sizes is None:
@@ -491,11 +518,13 @@ def k5_bound(slot_orig, kept, res, f=2, slots=6):
 
 
 def check_k4_k5(dev, shapes=((224, 2048, 13), (112, 512, 13),
-                            (224, 2048, 1), (112, 512, 1)), seed=4):
+                            (224, 2048, 1), (112, 512, 1),
+                            (224, 2048, 8), (112, 512, 8)), seed=4):
     """K4 (splat forward) and K5 (splat backward, per point) against their
-    plain versions at the pose path's shapes (R = 52 batched and R = 4 for
-    one object, S = 6, f = 2, gamma 1e-2): bit-equal on the table
-    _build_table returns (a view with render stride size + 1), on its
+    plain versions at the pose path's shapes (R = 52 for 13 objects, R = 4
+    for one, R = 32 for 8 Waymo scans; S = 6, f = 2, gamma 1e-2):
+    bit-equal on the table _build_table returns (a view with render
+    stride size + 1), on its
     contiguous copy and on a table with every entry present, and bitwise
     repeatable.  Times on the contiguous table, so that no copy is inside
     them.  Returns the main shape's numbers and prints all."""
@@ -672,90 +701,6 @@ def _np(x):
     return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
 
 
-def small_input_check(tmp: str, seed: int) -> None:
-    """Both paths at a tiny size, card against host (plain versions).
-
-    Aligned path: per-object CD within 1e-5 (the NN is bit-equal on
-    both); EMD within emd_eps absolute (the bid kernel uses the direct
-    distance form and the plain version the expansion, so a near-tied
-    bid can send the auction down another path; both ends are
-    eps-optimal).  Registration path: every registration step the card
-    ran is replayed on the host from the same inputs, and its transforms
-    must agree within REG_STEP_TOL.  Its end-to-end CD/EMD gap is printed
-    and held to no limit: between steps the host prep voxel-bins the
-    moved clouds, so a rounding-level change of a transform can move a
-    point across a voxel edge and resample another subset (ROADMAP
-    queue 3), which moves CD by percents on a two-object input."""
-    from genpc_tpu_torch.config import load_config
-    from genpc_tpu_torch.io.synthetic_data import write_dataset
-    from genpc_tpu_torch.parallel import batched_runner
-    flags = ["01184", "05117"]
-    root = os.path.join(tmp, f"tiny_{seed}")
-    write_dataset(root, flags, seed=seed, n_gt=8192)
-    for path, aligned in (("aligned", True), ("registration", False)):
-        kw = dict(TINY, trust_aligned_completion=aligned)
-        calls = {}
-        orig = {n: getattr(batched_runner, n) for n in REG_STEPS}
-
-        def recorder(name):
-            def call(*a, **k):
-                out = orig[name](*a, **k)
-                calls[name] = (a, k, out)
-                return out
-            return call
-
-        for n in REG_STEPS:
-            setattr(batched_runner, n, recorder(n))
-        try:
-            got = batched_runner.run_batched(
-                load_config(device="cuda", **kw), flags, root)
-        finally:
-            for n in REG_STEPS:
-                setattr(batched_runner, n, orig[n])
-        ref = batched_runner.run_batched(load_config(device="cpu", **kw),
-                                         flags, root)
-        for name, (a, k, out) in calls.items():
-            host = orig[name](*_to(a, "cpu"), **k)
-            outs = out if isinstance(out, tuple) else (out,)
-            hosts = host if isinstance(host, tuple) else (host,)
-            err = max(float(abs(_np(o) - _np(h)).max())
-                      for o, h in zip(outs, hosts))
-            log(f"small input seed {seed} {path} {name}: card vs host on the "
-                f"same inputs, max |dT| {err:.3e}")
-            if err > REG_STEP_TOL:
-                fail(f"small input {name}: card and host disagree")
-        for f in flags:
-            dcd = abs(got[f]["cd"] - ref[f]["cd"])
-            demd = abs(got[f]["emd"] - ref[f]["emd"])
-            log(f"small input seed {seed} {path} {f}: cuda CD "
-                f"{got[f]['cd']:.8f} EMD {got[f]['emd']:.7f} | cpu CD "
-                f"{ref[f]['cd']:.8f} EMD {ref[f]['emd']:.7f} | |dCD| "
-                f"{dcd:.3e} ({dcd / ref[f]['cd']:.4f} rel), |dEMD| "
-                f"{demd:.3e} ({demd / ref[f]['emd']:.4f} rel)")
-            if not all(map(math.isfinite, (got[f]["cd"], got[f]["emd"]))):
-                fail(f"small input {path} {f}: non-finite CD/EMD")
-            if aligned and not (dcd <= 1e-5 and demd <= TINY["emd_eps"]):
-                fail(f"small input {path} {f}: card and host disagree")
-
-
-#: configs/lidar.yaml and configs/lidar_ped.yaml as keyword overrides (on
-#: the Redwood protocol sizes of REDWOOD), with registration on and no
-#: saving, as bench_waymo.py runs them
-LIDAR = dict(REDWOOD, trust_aligned_completion=False, point_size=2,
-             mask_pixel_rate=2, removal_radius=100, edge_point_size=1)
-LIDAR_PED = dict(LIDAR, point_size=3, removal_radius=800)
-#: scans a category in the Waymo passes (bench_waymo.py takes 20: cut
-#: for the time limit), and objects of the per-object Redwood pass
-LIDAR_SCANS = 8
-PER_OBJECT_FLAGS = 3
-#: the per-object tiny config: TINY with registration, small pose inputs
-#: on both sides, and more fused points than the metric samples (the
-#: per-object metric, unlike the batched one, does not pad a fused cloud
-#: that the outlier mask left short)
-TINY_OBJ = dict(TINY, trust_aligned_completion=False, pose_partial_points=64,
-                fused_points=512)
-
-
 def _arrays(x):
     """The numeric arrays in a step's arguments or result, in order."""
     import numpy as np
@@ -834,6 +779,69 @@ def _hold_steps(label, calls, orig) -> None:
             fail(f"{label} {name}: card and host disagree")
 
 
+def small_input_check(tmp: str, seed: int) -> None:
+    """Both paths at a tiny size, card against host (plain versions).
+
+    Aligned path: per-object CD within 1e-5 (the NN is bit-equal on
+    both); EMD within emd_eps absolute (the bid kernel uses the direct
+    distance form and the plain version the expansion, so a near-tied
+    bid can send the auction down another path; both ends are
+    eps-optimal).  Registration path: every registration step the card
+    ran is replayed on the host from the same inputs, and its transforms
+    must agree within REG_STEP_TOL.  Its end-to-end CD/EMD gap is printed
+    and held to no limit: between steps the host prep voxel-bins the
+    moved clouds, so a rounding-level change of a transform can move a
+    point across a voxel edge and resample another subset (ROADMAP
+    queue 3), which moves CD by percents on a two-object input."""
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.io.synthetic_data import write_dataset
+    from genpc_tpu_torch.parallel import batched_runner
+    flags = ["01184", "05117"]
+    root = os.path.join(tmp, f"tiny_{seed}")
+    write_dataset(root, flags, seed=seed, n_gt=8192)
+    for path, aligned in (("aligned", True), ("registration", False)):
+        kw = dict(TINY, trust_aligned_completion=aligned)
+        calls = []
+        orig = {n: getattr(batched_runner, n) for n in REG_STEPS}
+        with patched(*[(batched_runner, n, _recorded(calls, n, orig[n]))
+                       for n in REG_STEPS]):
+            got = batched_runner.run_batched(
+                load_config(device="cuda", **kw), flags, root)
+        ref = batched_runner.run_batched(load_config(device="cpu", **kw),
+                                         flags, root)
+        _hold_steps(f"small input seed {seed} {path}", calls, orig)
+        for f in flags:
+            dcd = abs(got[f]["cd"] - ref[f]["cd"])
+            demd = abs(got[f]["emd"] - ref[f]["emd"])
+            log(f"small input seed {seed} {path} {f}: cuda CD "
+                f"{got[f]['cd']:.8f} EMD {got[f]['emd']:.7f} | cpu CD "
+                f"{ref[f]['cd']:.8f} EMD {ref[f]['emd']:.7f} | |dCD| "
+                f"{dcd:.3e} ({dcd / ref[f]['cd']:.4f} rel), |dEMD| "
+                f"{demd:.3e} ({demd / ref[f]['emd']:.4f} rel)")
+            if not all(map(math.isfinite, (got[f]["cd"], got[f]["emd"]))):
+                fail(f"small input {path} {f}: non-finite CD/EMD")
+            if aligned and not (dcd <= 1e-5 and demd <= TINY["emd_eps"]):
+                fail(f"small input {path} {f}: card and host disagree")
+
+
+#: configs/lidar.yaml and configs/lidar_ped.yaml as keyword overrides (on
+#: the Redwood protocol sizes of REDWOOD), with registration on and no
+#: saving, as bench_waymo.py runs them
+LIDAR = dict(REDWOOD, trust_aligned_completion=False, point_size=2,
+             mask_pixel_rate=2, removal_radius=100, edge_point_size=1)
+LIDAR_PED = dict(LIDAR, point_size=3, removal_radius=800)
+#: scans a category in the Waymo passes (bench_waymo.py takes 20: cut
+#: for the time limit), and objects of the per-object Redwood pass
+LIDAR_SCANS = 8
+PER_OBJECT_FLAGS = 3
+#: the per-object tiny config: TINY with registration, small pose inputs
+#: on both sides, and more fused points than the metric samples (the
+#: per-object metric, unlike the batched one, does not pad a fused cloud
+#: that the outlier mask left short)
+TINY_OBJ = dict(TINY, trust_aligned_completion=False, pose_partial_points=64,
+                fused_points=512)
+
+
 def small_input_check_per_object(tmp: str, seed: int) -> None:
     """run_pipeline and run_batched_lidar (PED scans, a 60-degree
     held-out wedge, registration on) at the tiny size, card against host.
@@ -906,18 +914,19 @@ def small_input_check_per_object(tmp: str, seed: int) -> None:
     _hold_steps(f"small input seed {seed} run_batched_lidar PED", calls,
                 bsteps)
     for f in lflags:
-        same = np.array_equal(fused["cuda"][f], fused["cpu"][f])
+        a, b = fused["cuda"][f], fused["cpu"][f]
+        same = a.shape == b.shape and np.allclose(a, b, rtol=0, atol=1e-5)
         log(f"small input seed {seed} run_batched_lidar PED {f}: fused "
-            f"clouds equal {same}; cuda {json.dumps(got[f])} | cpu "
-            f"{json.dumps(ref[f])}")
+            f"clouds equal within 1e-5 {same}; cuda {json.dumps(got[f])} | "
+            f"cpu {json.dumps(ref[f])}")
         if set(got[f]) != set(ref[f]) or "holdout_uhd" not in got[f]:
             fail(f"small input run_batched_lidar {f}: held-out flags differ "
                  f"or the wedge was not held out")
         if not all(map(math.isfinite, got[f].values())):
             fail(f"small input run_batched_lidar {f}: non-finite UHD")
         if same and any(abs(got[f][k] - ref[f][k]) > 1e-5 for k in got[f]):
-            fail(f"small input run_batched_lidar {f}: UHD differs on equal "
-                 f"fused clouds")
+            fail(f"small input run_batched_lidar {f}: UHD differs on "
+                 f"agreeing fused clouds")
 
 
 def _counted(label: str, counters, fn):

@@ -10,7 +10,8 @@ sweeps, final refine), the reference's headline path; ``--aligned``
 (``trust_aligned_completion=True``) lets completions their backend
 declares aligned skip registration.  Work runs on ``cfg.device``
 (``--device``, the card by default).  With ``save`` set (the config
-default) the workspace files are written under ``--output``.
+default) the workspace files are written under ``--output``.  No
+weights are loaded: the ported backends are the synthetic ones.
 
 Usage:
   python -m genpc_tpu_torch.main --config configs/redwood.yaml \
@@ -24,28 +25,17 @@ import os
 import time
 from typing import Dict, List, Optional
 
-import numpy as np
-
 from genpc_tpu_torch.categories import REDWOOD_FLAGS
 from genpc_tpu_torch.config import Config, load_config
 from genpc_tpu_torch.io.ply import load_xyz
 from genpc_tpu_torch.metrics.frame_fixes import apply_frame_fix
 from genpc_tpu_torch.metrics.metric import evaluate_pair, summarize
-from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
+from genpc_tpu_torch.pipeline.artifacts import input_artifacts
 from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import reg
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
 from genpc_tpu_torch.runtime import resolve_device
 from genpc_tpu_torch.tracing import StageTimer, trace
-
-
-def load_resampled(path: str, n_in: int, flag: str) -> ObjectArtifacts:
-    """A scan resampled to n_in points (with replacement when shorter),
-    the reference's fixed draw (seed 0)."""
-    xyz, rgb = load_xyz(path)
-    rng = np.random.default_rng(0)
-    idx = rng.choice(len(xyz), n_in, replace=len(xyz) < n_in)
-    return ObjectArtifacts(flag=flag, xyz=xyz[idx], rgb=rgb[idx])
 
 
 def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
@@ -56,11 +46,7 @@ def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
     """Per-object pipeline over flags; returns {flag: {'cd', 'emd'}} for
     the objects that finished and have a GT.  Spans (load, stage1,
     stage2, stage3, metric) go to ``timer``."""
-    if cfg.get("mesh_shape"):
-        raise NotImplementedError("cfg.mesh_shape: device meshes are not "
-                                  "ported (ROADMAP: multi-GPU data "
-                                  "parallelism)")
-    device = resolve_device(cfg.device)
+    device = resolve_device(cfg.device, cfg.get("mesh_shape"))
     timer = timer or StageTimer(device)
     gt_dir = gt_dir or os.path.join(data_dir, "GT")
     dp = DepthPrompting(cfg)
@@ -71,8 +57,8 @@ def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
     for flag in flags:
         print(f"Processing {flag}...")
         with timer.span("load"):
-            art = load_resampled(os.path.join(data_dir, f"{flag}.ply"),
-                                 n_in, flag)
+            xyz, rgb = load_xyz(os.path.join(data_dir, f"{flag}.ply"))
+            art = input_artifacts(flag, xyz, rgb, n_in)
         with timer.span("stage1"):
             dp.get_image(art)
         arts[flag] = art

@@ -9,7 +9,8 @@ workflow: stage 1 saves its workspace files, and stage 2 resumes from
 them.  LiDAR scans have no GT, so each object is scored by the
 partial->completion UHD.  The object-batched variant with the held-out
 wedge is ``parallel/batched_runner.run_batched_lidar``.  Work runs on
-``cfg.device`` (the card by default).
+``cfg.device`` (the card by default).  No weights are loaded: the
+ported backends are the synthetic ones.
 
 Usage:
   python -m genpc_tpu_torch.main_lidar --config configs/lidar.yaml \
@@ -26,9 +27,9 @@ from typing import List, Optional
 import numpy as np
 
 from genpc_tpu_torch.config import load_config
-from genpc_tpu_torch.main import load_resampled
+from genpc_tpu_torch.io.ply import load_xyz
 from genpc_tpu_torch.metrics.metric import uhd
-from genpc_tpu_torch.pipeline.artifacts import Workspace
+from genpc_tpu_torch.pipeline.artifacts import Workspace, input_artifacts
 from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import reg
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
@@ -52,8 +53,8 @@ def run_lidar(cfg, flags: List[str], data_dir: str, category: str,
     results = {}
 
     def scan(flag):
-        return load_resampled(os.path.join(data_dir, category,
-                                           f"{flag}.ply"), n_in, flag)
+        xyz, rgb = load_xyz(os.path.join(data_dir, category, f"{flag}.ply"))
+        return input_artifacts(flag, xyz, rgb, n_in)
 
     arts = {}
     if stage in ("all", "1"):

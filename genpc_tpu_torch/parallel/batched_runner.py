@@ -40,12 +40,14 @@ import torch
 
 from genpc_tpu_torch.geometry.normalize import normalize_points
 from genpc_tpu_torch.io.ply import load_xyz
+from genpc_tpu_torch.metrics.metric import uhd
 from genpc_tpu_torch.ops.chamfer import _nn, chamfer_nn, nearest_neighbor
 from genpc_tpu_torch.ops.emd import emd_auction
 from genpc_tpu_torch.ops.fps import pad_repeat
 from genpc_tpu_torch.ops.fps_kernel import fps_batched
 from genpc_tpu_torch.ops.voxel import voxel_down_sample
-from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
+from genpc_tpu_torch.pipeline.artifacts import (ObjectArtifacts,
+                                                input_artifacts)
 from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import resample_fixed
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
@@ -346,13 +348,6 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     mark("reg_fusion")
 
 
-def _uhd_max(a: np.ndarray, b: np.ndarray, device) -> float:
-    d2, _ = nearest_neighbor(
-        torch.as_tensor(np.asarray(a, np.float32), device=device),
-        torch.as_tensor(np.asarray(b, np.float32), device=device))
-    return float(np.sqrt(np.maximum(d2.cpu().numpy(), 0)).max())
-
-
 def _fusion_report(art: ObjectArtifacts, s: np.ndarray, t: np.ndarray,
                    prov: dict, device) -> dict:
     """One object's fusion attribution (the reference's PED diagnosis):
@@ -368,11 +363,11 @@ def _fusion_report(art: ObjectArtifacts, s: np.ndarray, t: np.ndarray,
         "reg_residual_cd_x100": round(float(np.sqrt(np.maximum(
             ds.cpu().numpy(), 0)).mean()) * 100, 3),
         "uhd_x100_partial_to_concat": round(
-            _uhd_max(part, prov["concat"], device) * 100, 3),
+            uhd(part, prov["concat"], device=device) * 100, 3),
         "uhd_x100_partial_to_postfps": round(
-            _uhd_max(part, prov["sampled"], device) * 100, 3),
+            uhd(part, prov["sampled"], device=device) * 100, 3),
         "uhd_x100_partial_to_fused": round(
-            _uhd_max(part, art.fused_xyz, device) * 100, 3),
+            uhd(part, art.fused_xyz, device=device) * 100, 3),
         "partial_frac_after_fps": round(float(fp.mean()), 4),
         "partial_kept_by_outlier_mask": round(float(mask[fp].mean()), 4)
         if fp.any() else None,
@@ -422,11 +417,7 @@ def run_batched(cfg, flags: List[str], data_dir: str,
     device synchronisation, and the registration steps inside stage 3
     (``batched_reg``'s reg_* keys).  dp (optional) injects a pre-built
     DepthPrompting."""
-    if cfg.get("mesh_shape"):
-        raise NotImplementedError("cfg.mesh_shape: device meshes are not "
-                                  "ported (ROADMAP: multi-GPU data "
-                                  "parallelism)")
-    device = resolve_device(cfg.device)
+    device = resolve_device(cfg.device, cfg.get("mesh_shape"))
     t_last = [time.time()]
 
     def mark(name):
@@ -444,9 +435,7 @@ def run_batched(cfg, flags: List[str], data_dir: str,
     arts = []
     for flag in flags:
         xyz, rgb = load_xyz(os.path.join(data_dir, f"{flag}.ply"))
-        rng = np.random.default_rng(0)
-        idx = rng.choice(len(xyz), n_in, replace=len(xyz) < n_in)
-        arts.append(ObjectArtifacts(flag=flag, xyz=xyz[idx], rgb=rgb[idx]))
+        arts.append(input_artifacts(flag, xyz, rgb, n_in))
     mark("load")
     batched_stage1(cfg, arts, dp.viewpoints, dp=dp)
     mark("stage1")
@@ -548,11 +537,7 @@ def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
     from the held-out points to the fused completion: a completion
     quality signal the partial->fused UHD cannot give, since the fused
     cloud contains the partial."""
-    if cfg.get("mesh_shape"):
-        raise NotImplementedError("cfg.mesh_shape: device meshes are not "
-                                  "ported (ROADMAP: multi-GPU data "
-                                  "parallelism)")
-    device = resolve_device(cfg.device)
+    device = resolve_device(cfg.device, cfg.get("mesh_shape"))
     dp = DepthPrompting(cfg)
     sa = ScaleAdapter(cfg)
     n_in = int(cfg.get("input_points", 65536))
@@ -567,9 +552,7 @@ def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
             if held.any() and (~held).sum() >= keep_min:
                 heldout[flag] = xyz[held].astype(np.float32)
                 xyz, rgb = xyz[~held], rgb[~held]
-        rng = np.random.default_rng(0)
-        idx = rng.choice(len(xyz), n_in, replace=len(xyz) < n_in)
-        arts.append(ObjectArtifacts(flag=flag, xyz=xyz[idx], rgb=rgb[idx]))
+        arts.append(input_artifacts(flag, xyz, rgb, n_in))
 
     batched_stage1(cfg, arts, dp.viewpoints, dp=dp)
     _generate_images(cfg, dp, arts)

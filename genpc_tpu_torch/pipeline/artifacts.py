@@ -48,6 +48,16 @@ class ObjectArtifacts:
     fused_rgb: Optional[np.ndarray] = None
 
 
+def input_artifacts(flag: str, xyz: np.ndarray, rgb: np.ndarray,
+                    n_in: int) -> ObjectArtifacts:
+    """An object's input record: the scan drawn to n_in points, with
+    replacement when it is shorter, by the reference's fixed draw (seed
+    0), so that every stage sees one size."""
+    rng = np.random.default_rng(0)
+    idx = rng.choice(len(xyz), n_in, replace=len(xyz) < n_in)
+    return ObjectArtifacts(flag=flag, xyz=xyz[idx], rgb=rgb[idx])
+
+
 def _save_png(path: str, img: np.ndarray) -> None:
     """img: [C,H,W] or [H,W,C] float in [0,1] (or uint8)."""
     from PIL import Image

@@ -3,6 +3,7 @@ the held-out wedge and the fusion attribution; list_scans) with the JAX
 reference on the CPU, on generated LiDAR-like scans."""
 
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import genpc_tpu.native
 import genpc_tpu_torch.config as tconfig
 from genpc_tpu_torch.io.synthetic_data import (LIDAR_POINTS,
                                                write_lidar_dataset)
+from torch_replay import REG_STEP_TOL, held, native_off, tape
 
 #: the tiny run_batched config of test_torch_pipeline.py, with stage 1's
 #: FPS above a PED scan's unique points (~350-500 drawn to 4,096), so
@@ -35,8 +37,6 @@ REG_STEPS = {
     "batched_fine_search": lambda out: tuple(np.asarray(o) for o in out),
     "batched_similarity_refine": lambda out: torch.tensor(np.asarray(out)),
 }
-#: the tolerance of test_torch_per_object.REG_STEP_TOL and its reason
-REG_STEP_TOL = 1e-3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,41 +47,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _native_off(*_a, **_k):
-    raise RuntimeError("native voxel helper pinned off")
-
-
-def _arrays(x):
-    if isinstance(x, (tuple, list)):
-        return [a for v in x for a in _arrays(v)]
-    if isinstance(x, torch.Tensor):
-        return [x.numpy()]
-    if x is None or isinstance(x, (str, int, float)):
-        return []
-    return [np.asarray(x, np.float64)]
-
-
-def _max_err(a, b):
-    pairs = list(zip(_arrays(a), _arrays(b)))
-    assert pairs and all(x.shape == y.shape for x, y in pairs)
-    return max(float(np.abs(np.asarray(x, np.float64) - y).max())
-               for x, y in pairs)
-
-
-def _tape(fn, tape):
-    """fn recording its outputs onto an empty tape, or replaying a full
-    tape in call order without calling fn."""
-    replay = list(tape)
-
-    def call(*a, **k):
-        if replay:
-            return replay.pop(0)
-        out = fn(*a, **k)
-        tape.append(out)
-        return out
-    return call
 
 
 def _run(pkg, cfg, root, category, tapes, **kw):
@@ -97,35 +62,22 @@ def _run(pkg, cfg, root, category, tapes, **kw):
     br = importlib.import_module(f"{pkg}.parallel.batched_runner")
     syn = importlib.import_module(f"{pkg}.models.synthetic")
     steps = []
-
-    def held(name, fn):
-        tape = tapes["steps"].setdefault(name, [])
-        replay = list(tape)
-
-        def call(*a, **k):
-            out = fn(*a, **k)
-            if not replay:
-                tape.append((a, out))
-                return out
-            ref_a, ref_out = replay.pop(0)
-            steps.append((name, _max_err(a, ref_a), _max_err(out, ref_out)))
-            return REG_STEPS[name](ref_out)
-        return call
-
     if tapes["plans"] is None:
         def plan(pts_list, *_a, **_k):
             return [None] * len(pts_list)
     else:
-        plan = _tape(syn.SyntheticImage23D.plan_symmetry_batched,
-                     tapes["plans"])
+        plan = tape(syn.SyntheticImage23D.plan_symmetry_batched,
+                    tapes["plans"])
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(syn.SyntheticImage23D, "plan_symmetry_batched",
                    staticmethod(plan))
         mp.setattr(syn.SyntheticDepth2Image, "generate",
-                   _tape(syn.SyntheticDepth2Image.generate, tapes["images"]))
-        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", _native_off)
-        for name in REG_STEPS:
-            mp.setattr(br, name, held(name, getattr(br, name)))
+                   tape(syn.SyntheticDepth2Image.generate, tapes["images"]))
+        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", native_off)
+        for name, convert in REG_STEPS.items():
+            mp.setattr(br, name, held(name, getattr(br, name),
+                                      tapes["steps"].setdefault(name, []),
+                                      steps, convert))
         out = br.run_batched_lidar(cfg, FLAGS[category], root, category,
                                    **kw)
     return out, steps
@@ -230,3 +182,41 @@ def test_lidar_scans_and_list_scans(dataset):
         for f in flags:
             pts, _ = load_xyz(f"{dataset}/{category}/{f}.ply")
             assert lo <= len(pts) < hi
+
+
+def test_run_lidar_split_workflow(dataset, tmp_path):
+    # main_lidar.run_lidar --stage 1 saves each scan's stage-1 files, and
+    # --stage 2 resumes from them (the reference's split workflow): a
+    # finite UHD a scan, and the reference's workspace file names
+    from genpc_tpu_torch.main_lidar import run_lidar
+    cfg = tconfig.load_config(
+        device="cpu", **dict(TINY, save=True, output_path=str(tmp_path),
+                             trust_aligned_completion=False,
+                             pose_partial_points=64, fused_points=512))
+    flags = FLAGS["CAR"][:1]
+    with pytest.MonkeyPatch.context() as mp:
+        syn = importlib.import_module("genpc_tpu_torch.models.synthetic")
+        mp.setattr(syn.SyntheticImage23D, "plan_symmetry_batched",
+                   staticmethod(lambda pts, *a, **k: [None] * len(pts)))
+        assert run_lidar(cfg, flags, dataset, "CAR", stage="1") == {}
+        out = run_lidar(cfg, flags, dataset, "CAR", stage="2")
+    assert set(out) == set(flags) and np.isfinite(out[flags[0]])
+    files = set(os.listdir(tmp_path / flags[0]))
+    assert {"depth.png", "img.png", "point_uv.npy", "viewpoint.npy",
+            "color_point.ply", f"{flags[0]}_synthetic.ply",
+            f"{flags[0]}_fused.ply"} <= files
+
+
+@pytest.mark.parametrize("module,args", [
+    ("genpc_tpu_torch.main", []),
+    ("genpc_tpu_torch.main", ["--batched"]),
+    ("genpc_tpu_torch.main_lidar", ["--config", "absent.yaml"]),
+])
+def test_entry_points_run_on_the_card_unless_asked(dataset, module, args):
+    # with no --device the CLIs ask for the card; on a machine without
+    # one they raise instead of falling back to the CPU
+    mod = importlib.import_module(module)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main(["--data-dir", dataset] + args)

@@ -23,6 +23,7 @@ from genpc_tpu_torch.metrics import metric as tmetric
 from genpc_tpu_torch.ops import hpr as thpr
 from genpc_tpu_torch.ops.fps_kernel import fps_batched
 from genpc_tpu_torch.ops.outliers import statistical_outlier_mask as tmask
+from torch_replay import REG_STEP_TOL, held, native_off, tape
 
 FLAGS = ["01184", "05117"]
 #: the reference's tiny pipeline config (tests/test_pipeline.py:16-28),
@@ -51,47 +52,9 @@ def _t(a):
     return torch.as_tensor(np.asarray(a))
 
 
-def _native_off(*_a, **_k):
-    raise RuntimeError("native voxel helper pinned off")
-
-
-def _record_or_replay(fn, tape):
-    """fn recording its outputs onto an empty tape, or replaying a full
-    tape's outputs in call order without calling fn."""
-    replay = list(tape)
-
-    def call(*a, **k):
-        if replay:
-            return replay.pop(0)
-        out = fn(*a, **k)
-        tape.append(out)
-        return out
-    return call
-
-
-def _arrays(x):
-    """The numeric arrays in a step's arguments or result, in order."""
-    if isinstance(x, (tuple, list)):
-        return [a for v in x for a in _arrays(v)]
-    if isinstance(x, torch.Tensor):
-        return [x.numpy()]
-    if x is None or isinstance(x, str):
-        return []
-    return [np.asarray(x, np.float64)]
-
-
-def _max_err(a, b):
-    """Max |a - b| over a step's arrays (the port batches a problem
-    where the reference takes it alone: shapes [1,...] against [...])."""
-    pairs = list(zip(_arrays(a), _arrays(b)))
-    assert pairs and all(x.size == y.size for x, y in pairs)
-    return max(float(np.abs(np.asarray(x, np.float64).reshape(y.shape)
-                            - y).max()) for x, y in pairs)
-
-
-#: the registration steps of reg whose outputs (transforms, scales) are
-#: held to the reference step by step: (reference module, port module or
-#: dict, name), and how the reference's result is handed to the port
+#: the registration steps of reg whose results (transforms, scales) are
+#: held to the reference step by step, and how the reference's result is
+#: handed to the port
 REG_STEPS = {
     "object_pose_optimization": lambda out: np.asarray(out),
     "coarse_scale_sweep": lambda out: (out[0], np.asarray(out[1]), out[2]),
@@ -99,13 +62,6 @@ REG_STEPS = {
                                            np.asarray(out[2])),
     "anisotropic": lambda out: torch.tensor(np.asarray(out))[None],
 }
-#: transforms of one algorithm on the same inputs, with different
-#: roundings of the same sums: 30 ICP iterations twice per scale, where a
-#: correspondence that crosses the distance threshold or a near-tied NN
-#: moves the result by more than rounding (measured: <= 2.4e-6, and
-#: 2.3e-4 on one object's coarse sweep)
-REG_STEP_TOL = 1e-3
-
 
 def _reg_step_targets(pkg):
     """(owner, attribute) of each REG_STEPS entry in one package."""
@@ -152,10 +108,8 @@ def _run_pipeline(pkg, cfg, root, tapes):
     syn = importlib.import_module(f"{pkg}.models.synthetic")
     seen = {"stage3_in": {}, "fused": {}, "steps": []}
     reg = main.reg
-    plan = _record_or_replay(syn.SyntheticImage23D.plan_symmetry_batched,
-                             tapes["plans"])
-    generate = _record_or_replay(syn.SyntheticDepth2Image.generate,
-                                 tapes["images"])
+    plan = tape(syn.SyntheticImage23D.plan_symmetry_batched, tapes["plans"])
+    generate = tape(syn.SyntheticDepth2Image.generate, tapes["images"])
 
     def rec_reg(cfg, art, **k):
         seen["stage3_in"][art.flag] = copy.deepcopy(art)
@@ -163,32 +117,21 @@ def _run_pipeline(pkg, cfg, root, tapes):
         seen["fused"][art.flag] = art.fused_xyz
         return out
 
-    def held(name, fn):
-        tape = tapes["steps"].setdefault(name, [])
-        replay = list(tape)
-
-        def call(*a, **k):
-            out = fn(*a, **k)
-            if not replay:
-                tape.append((a, out))
-                return out
-            ref_a, ref_out = replay.pop(0)
-            seen["steps"].append((name, _max_err(a, ref_a),
-                                  _max_err(out, ref_out)))
-            return REG_STEPS[name](ref_out)
-        return call
-
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(syn.SyntheticImage23D, "plan_symmetry_batched",
                    staticmethod(plan))
         mp.setattr(syn.SyntheticDepth2Image, "generate", generate)
         mp.setattr(main, "reg", rec_reg)
-        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", _native_off)
+        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", native_off)
         for name, (owner, attr) in _reg_step_targets(pkg).items():
+            fn = owner[attr] if isinstance(owner, dict) else \
+                getattr(owner, attr)
+            step = held(name, fn, tapes["steps"].setdefault(name, []),
+                        seen["steps"], REG_STEPS[name])
             if isinstance(owner, dict):
-                mp.setitem(owner, attr, held(name, owner[attr]))
+                mp.setitem(owner, attr, step)
             else:
-                mp.setattr(owner, attr, held(name, getattr(owner, attr)))
+                mp.setattr(owner, attr, step)
         seen["results"] = main.run_pipeline(cfg, FLAGS, root)
     return seen
 
@@ -246,7 +189,7 @@ def test_reg_matches_reference(pipelines, dataset):
     art = ObjectArtifacts(**{k: copy.deepcopy(v) for k, v in
                              vars(src).items()})
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", _native_off)
+        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", native_off)
         reg(tconfig.load_config(device="cpu", **TINY), art,
             cd_inv_weight=0.5, diff_init=True, reg_fine_xyz=True,
             verbose=False)
@@ -416,7 +359,7 @@ def test_load_xyz_down_sample_matches(tmp_path):
     path = str(tmp_path / "scan.ply")
     save_ply(path, part, rgb)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", _native_off)
+        mp.setattr(genpc_tpu.native, "voxel_down_sample_native", native_off)
         pj, cj = jload(path, down_sample=0.05)
     pt, ct = tload(path, down_sample=0.05)
     assert len(pt) < len(part)
