@@ -41,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught):
      them, a warm-up and a timed pass that must repeat bitwise;
      run_batched_lidar over LIDAR_SCANS generated CAR and PED scans at
      configs/lidar.yaml's and lidar_ped.yaml's values (CAR: a warm-up, a
-     timed and a held-out pass; PED: a timed and a held-out pass); and
+     timed and a held-out pass; PED: a timed, a held-out and a pass
+     with the fusion attribution of batched_reg's fusion_debug); and
      main_lidar.run_lidar over 2 CAR scans.  Every timed pass counts the
      launches of each kernel (the counts set to 0 just before it and read
      just after; each kernel of the path must launch) and prints a
@@ -997,10 +998,15 @@ def drive_per_object(root: str, flags, counters) -> dict:
 
 
 def drive_lidar(root: str, flags, category: str, cfg_kw: dict, counters,
-                warm: bool) -> dict:
+                warm: bool, attribute: bool = False) -> dict:
     """run_batched_lidar over one category of generated scans at its
     config's values, registration on: an optional warm-up pass, the timed
-    pass (launches counted) and a pass with a 60-degree held-out wedge."""
+    pass (launches counted), a pass with a 60-degree held-out wedge, and
+    with attribute a pass with ``fusion_debug`` whose means over the
+    scans say where the partial->fused UHD arises (the registration
+    residual, the UHD to the concatenation, after the FPS and after the
+    outlier mask, and the share of partial and generated points each
+    step kept)."""
     import numpy as np
     from genpc_tpu_torch.config import load_config
     from genpc_tpu_torch.parallel.batched_runner import run_batched_lidar
@@ -1031,6 +1037,14 @@ def drive_lidar(root: str, flags, category: str, cfg_kw: dict, counters,
     if not (np.isfinite(uhds).all() and np.isfinite(hvals).all()
             and hvals):
         fail(f"{label}: non-finite UHD or no scan held out")
+    if attribute:
+        dbg = {}
+        run_batched_lidar(cfg, flags, root, category, fusion_debug=dbg)
+        keys = next(iter(dbg.values()))
+        log(f"{label}: fusion attribution, mean over {len(dbg)} scans: "
+            + json.dumps({k: round(float(np.mean(
+                [d[k] for d in dbg.values() if d[k] is not None])), 4)
+                for k in keys}))
     return {"launches": launches, "wall": wall, "held_wall": held_wall}
 
 
@@ -1265,7 +1279,8 @@ def main() -> int:
         runs["lidar_car"] = drive_lidar(wroot, scans["CAR"], "CAR", LIDAR,
                                         counters, warm=True)
         runs["lidar_ped"] = drive_lidar(wroot, scans["PED"], "PED",
-                                        LIDAR_PED, counters, warm=False)
+                                        LIDAR_PED, counters, warm=False,
+                                        attribute=True)
         runs["run_lidar"] = drive_run_lidar(wroot, scans["CAR"][:2],
                                             counters)
         if "--profile" in sys.argv[1:]:
