@@ -171,6 +171,8 @@ K1_SHAPES = [
     ("pose8_2048", (32, 2048, 2048), 8),
     ("uhd", (8, 65536, 20000), 0),
     ("holdout", (8, 1400, 20000), 0),
+    # run_lidar: one scan's UHD
+    ("uhd_1", (1, 65536, 20000), 0),
 ]
 K3_SHAPE = (13, 16384, 16384)
 #: K3 for one object (the per-object metric)
