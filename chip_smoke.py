@@ -49,9 +49,10 @@ Phases (any failure exits non-zero; nothing is caught):
      histogram of the K1-K5 launches by shape (K1/K3 (B, N, M), K2 (B, N,
      k), K4 (R, S, res), K5 (R, N, res)): launches and summed time (CUDA
      events around each call).
-     --profile adds one torch.profiler pass of the registration path and
-     prints device time by kernel (kernel rows only), and K1's, K3's,
-     K4's and K5's sums.
+     --profile adds torch.profiler passes of the batched registration
+     path and of the per-object path (one object) and prints device time
+     by kernel (kernel rows only), the device's busy share, and K1-K5's
+     sums.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the batched registration pass, and by path); the last line
@@ -1182,18 +1183,27 @@ def launch_histogram(path: str, traces: dict) -> None:
 
 
 def profile_pass(root: str, flags) -> None:
-    """One traced registration pass: device time by kernel (kernel rows
-    only, summed per name) and the device's busy share of the wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """One traced pass of the batched registration path over all flags
+    and one of the per-object path over the first: device time by kernel
+    (kernel rows only, summed per name) and the device's busy share of
+    the wall."""
     from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.main import run_pipeline
     from genpc_tpu_torch.parallel import batched_runner
     cfg = load_config(device="cuda", **dict(REDWOOD,
                                             trust_aligned_completion=False))
+    _profiled("registration", lambda: batched_runner.run_batched(
+        cfg, flags, root))
+    _profiled("per_object", lambda: run_pipeline(cfg, flags[:1], root))
+
+
+def _profiled(label: str, fn) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        batched_runner.run_batched(cfg, flags, root)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = {}
@@ -1202,18 +1212,19 @@ def profile_pass(root: str, flags) -> None:
             ms, n = rows.get(evt.name, (0.0, 0))
             rows[evt.name] = (ms + evt.device_time / 1e3, n + 1)
     busy = sum(ms for ms, _ in rows.values())
-    log(f"profile: traced registration pass {wall:.3f} s, device busy "
+    log(f"profile: traced {label} pass {wall:.3f} s, device busy "
         f"{busy / 1e3:.3f} s ({busy / 1e3 / wall:.4f} of the wall), "
         f"{sum(n for _, n in rows.values())} kernel launches")
     for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:25]:
         log(f"  {ms:10.3f} ms {n:7d}x  {name[:100]}")
     for kernel, names in (("K1", ("nn_kernel", "nn_merge_kernel")),
+                          ("K2", ("fps_cluster_kernel",)),
                           ("K3", ("bid_kernel",)),
                           ("K4", ("splat_fwd_kernel",)),
                           ("K5", ("splat_bwd_points_kernel",))):
         pat = re.compile(r"(?<![A-Za-z_])(%s)\b" % "|".join(names))
         hits = [v for k, v in rows.items() if pat.search(k)]
-        log(f"profile: {kernel} ({', '.join(names)}) "
+        log(f"profile {label}: {kernel} ({', '.join(names)}) "
             f"{sum(ms for ms, _ in hits):.3f} ms over "
             f"{sum(n for _, n in hits)} launches")
 
