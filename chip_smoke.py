@@ -53,6 +53,20 @@ Phases (any failure exits non-zero; nothing is caught):
      path and of the per-object path (one object) and prints device time
      by kernel (kernel rows only), the device's busy share, and K1-K5's
      sums.
+  5. generation: ControlNetDepth and its T2I-Adapter variant at the
+     tiny preset on the host and on the card with one state dict, the
+     pure denoise on the same draws (images within GEN_IMAGE_TOL); then
+     run_batched on the registration path over the 13 objects with the
+     full-width SDXL depth ControlNet generating every image at 512²
+     (30 steps, guidance 5.0): a warm-up and a timed pass, the images
+     bitwise equal between them, the generation stage split into weight
+     initialisation, prompt encoding, denoise loop and VAE decode, ms a
+     denoise step (CUDA events), the peak memory allocated, CD/EMD and
+     the K1-K5 launches; then standalone generate calls (the ControlNet
+     at 1024², the adapter at 512²), the FLOPs of one denoise step
+     (FlopCounterMode) at 512² and 1024² over its time against the bf16
+     peak, and the memory allocated before the backend against after
+     its release().
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the batched registration pass, and by path); the last line
@@ -648,7 +662,8 @@ PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
                 "per_object": tuple(k[0] for k in KERNELS),
                 "lidar_car": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
                 "lidar_ped": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
-                "run_lidar": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd")}
+                "run_lidar": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
+                "controlnet": tuple(k[0] for k in KERNELS)}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -1229,6 +1244,244 @@ def _profiled(label: str, fn) -> None:
             f"{sum(n for _, n in hits)} launches")
 
 
+# ------------------------------------------------------------ phase 5 ---
+
+#: the generation pass: configs/redwood.yaml's sizes with the SDXL depth
+#: ControlNet at full width (generate's defaults: 30 Euler-ancestral
+#: steps, guidance 5.0, 512² images), registration on
+CONTROLNET = dict(REDWOOD, trust_aligned_completion=False,
+                  control_model="controlnet", model_size="full")
+GEN_STEPS = 30
+#: card against host at the tiny preset: tests/test_torch_generate.py's
+#: IMAGE_TOL["bf16"] (max |d| over [0, 1] images; bf16 rounds at other
+#: points in the card's and the host's kernels, and guidance 5.0
+#: multiplies the gap between the branches)
+GEN_IMAGE_TOL = 0.08
+BF16_PEAK = 989e12             # H100 SXM bf16 dense (NVIDIA data sheet)
+RELEASE_SLACK = 256 << 20      # bytes release() may leave allocated
+
+
+def _depth_image(seed: int = 0, res: int = 256):
+    """A [3, res, res] depth image in [0, 1] like stage 1's: an inverted
+    height field on a black background."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:res, 0:res] / (res - 1.0)
+    d = np.clip(0.9 - (xx - 0.5) ** 2 - (yy - 0.45) ** 2
+                + 0.02 * r.random((res, res)), 0, 1)
+    d[(xx - 0.5) ** 2 + (yy - 0.45) ** 2 > 0.12] = 0.0
+    return np.repeat(d[None], 3, 0).astype(np.float32)
+
+
+def generation_card_vs_host() -> None:
+    """ControlNetDepth and its adapter variant at the tiny preset, on the
+    host and on the card with the same state dict: the pure denoise over
+    3 steps on the same draws gives images within GEN_IMAGE_TOL."""
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
+    depth = _depth_image(res=32)
+    g = torch.Generator().manual_seed(0)
+    lat = torch.randn((1, 4, 8, 8), generator=g)
+    noises = torch.randn((3, 1, 4, 8, 8), generator=g)
+    for adapter in (False, True):
+        host = ControlNetDepth(load_config(device="cpu", model_size="tiny"),
+                               adapter=adapter)
+        host.init_params()
+        card = ControlNetDepth(load_config(device="cuda",
+                                           model_size="tiny"),
+                               adapter=adapter)
+        card.init_params({k: m.state_dict()
+                          for k, m in host.models().items()})
+        imgs = [b.denoise(b.prepare_depth(depth, 64),
+                          *b.encode_prompts("chair", 64),
+                          lat.to(b.device), noises.to(b.device)).cpu()
+                for b in (host, card)]
+        gap = float((imgs[0] - imgs[1]).abs().max())
+        label = "adapter" if adapter else "controlnet"
+        log(f"generation card vs host, tiny {label}, 64², 3 steps: max "
+            f"|d| {gap:.3e} (tolerance {GEN_IMAGE_TOL})")
+        if not (torch.isfinite(imgs[1]).all() and gap <= GEN_IMAGE_TOL):
+            fail(f"generation card vs host ({label}): the images disagree")
+
+
+class _StepEvents:
+    """CUDA events around each ControlNetDepth.denoise_latents call, for
+    the milliseconds of one denoise step (ControlNet + two UNet passes,
+    or adapter + two)."""
+
+    def __init__(self):
+        from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
+        self.cls, self.calls = ControlNetDepth, []
+        self.orig = ControlNetDepth.denoise_latents
+
+    def __enter__(self):
+        import torch
+        orig, calls = self.orig, self.calls
+
+        def timed(backend, *a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(backend, *a, **k)
+            end.record()
+            calls.append((start, end, len(a[6])))
+            return out
+        self.cls.denoise_latents = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.denoise_latents = self.orig
+
+    def ms_per_step(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return (sum(s.elapsed_time(e) for s, e, _ in self.calls)
+                / sum(n for _, _, n in self.calls))
+
+
+def drive_controlnet(root: str, flags, counters) -> dict:
+    """run_batched (registration path) with the full-width ControlNet
+    generator: a warm-up pass, then the timed pass whose launches are
+    counted.  The generated images of the two passes must be bitwise
+    equal (each pass builds its backend from the same seed)."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.parallel import batched_runner
+    cfg = load_config(device="cuda", **CONTROLNET)
+    gen = batched_runner._generate_images
+    stages = []
+
+    def recording(cfg, dp, arts):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        gen(cfg, dp, arts)
+        torch.cuda.synchronize()
+        stages.append(dict(
+            wall=time.time() - t0, base=base,
+            peak=torch.cuda.max_memory_allocated(),
+            images=[np.array(a.image) for a in arts],
+            spans=dp.depth2image.timer.as_dict()))
+
+    with patched((batched_runner, "_generate_images", recording)):
+        t0 = time.time()
+        batched_runner.run_batched(cfg, flags, root)
+        log(f"controlnet: warm-up pass {time.time() - t0:.2f} s")
+        timings = {}
+        with _StepEvents() as ev:
+            results, wall, launches = _counted(
+                "controlnet", counters,
+                lambda: batched_runner.run_batched(cfg, flags, root,
+                                                   timings=timings))
+    warm, timed = stages
+    log(f"controlnet: timed pass {wall:.3f} s, "
+        f"{len(flags) / wall * 60:.3f} objects/min; stage walls (s): "
+        + json.dumps({k: round(v, 4) for k, v in timings.items()}))
+    log(f"controlnet: generation stage {timed['wall']:.3f} s for "
+        f"{len(flags)} images at {CONTROLNET['generate_res']}², "
+        f"{GEN_STEPS} steps: spans (s, calls) " + json.dumps(
+            {k: [round(t, 4), c] for k, (t, c) in timed["spans"].items()})
+        + f"; {ev.ms_per_step():.3f} ms per denoise step (CUDA events); "
+        f"peak allocated {timed['peak'] / 2**30:.3f} GiB ("
+        f"{(timed['peak'] - timed['base']) / 2**30:.3f} GiB above the "
+        f"stage's start)")
+    cds = np.array([results[f]["cd"] for f in flags])
+    emds = np.array([results[f]["emd"] for f in flags])
+    for f in flags:
+        log(f"  {f}: CD x100 {results[f]['cd'] * 100:.4f} / EMD x100 "
+            f"{results[f]['emd'] * 100:.4f}")
+    log(f"controlnet: mean CD x100 {cds.mean() * 100:.4f}, mean EMD x100 "
+        f"{emds.mean() * 100:.4f} over {len(flags)} objects")
+    if set(results) != set(flags) or not (np.isfinite(cds).all()
+                                          and np.isfinite(emds).all()):
+        fail("controlnet: missing objects or non-finite CD/EMD")
+    if not all(np.isfinite(im).all() for im in timed["images"]):
+        fail("controlnet: a non-finite generated image")
+    same = all(np.array_equal(a, b)
+               for a, b in zip(warm["images"], timed["images"]))
+    log(f"controlnet: warm-up and timed passes generate bitwise equal "
+        f"images: {same}")
+    if not same:
+        fail("controlnet: the two passes generate different images")
+    return {"results": results, "launches": launches, "wall": wall}
+
+
+def drive_generate_standalone() -> None:
+    """generate outside run_batched: the full ControlNet at 1024² (the
+    reference bench's size) and the adapter at 512², 30 steps each, with
+    ms per step; the FLOPs of one denoise step at 512² and 1024²
+    (FlopCounterMode) over its time; and the memory back after
+    release()."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
+    depth = _depth_image()
+    cfg = load_config(device="cuda", model_size="full")
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    b = ControlNetDepth(cfg)
+    with _StepEvents() as ev:
+        t0 = time.time()
+        img = b.generate(depth, "chair", size=1024,
+                         num_inference_steps=GEN_STEPS)
+        wall = time.time() - t0
+    log(f"generate ControlNet 1024², {GEN_STEPS} steps: {wall:.3f} s, "
+        f"{ev.ms_per_step():.3f} ms per denoise step (CUDA events); spans "
+        f"(s, calls) " + json.dumps({k: [round(t, 4), c] for k, (t, c)
+                                     in b.timer.as_dict().items()}))
+    if img.shape != (1024, 1024, 3) or not np.isfinite(img).all():
+        fail("generate 1024²: bad image")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for size in (512, 1024):
+        h = size // 8
+        with torch.inference_mode():
+            conds = b.encode_prompts("chair", size)
+            cond = b.prepare_depth(depth, size)
+            x = torch.randn((1, 4, h, h), generator=g, device="cuda")
+            t = torch.full((1,), 500.0, device="cuda")
+
+            with FlopCounterMode(display=False) as fc:
+                b.guided_eps(x, t, cond, *conds)
+            flops = fc.get_total_flops()
+            ms = cuda_ms(lambda: b.step_eps(x, t, cond, *conds), reps=5)
+            eager_ms = cuda_ms(lambda: b.guided_eps(x, t, cond, *conds),
+                               reps=3)
+        log(f"denoise step FLOPs at {size}²: {flops / 1e12:.4f} TFLOP "
+            f"(FlopCounterMode: ControlNet + two UNet passes) in {ms:.3f} "
+            f"ms (its CUDA graph; CUDA events, median of 5) = "
+            f"{flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{flops / ms / 1e-3 / BF16_PEAK:.4f} of the H100 SXM's "
+            f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16 dense peak (data sheet); "
+            f"eager, behind a device sleep: {eager_ms:.3f} ms")
+    b.release()
+    del b
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    log(f"release(): memory allocated {base / 2**20:.1f} MiB before the "
+        f"backend, {after / 2**20:.1f} MiB after release()")
+    if after - base > RELEASE_SLACK:
+        fail("release() left the backend's memory allocated")
+    a = ControlNetDepth(cfg, adapter=True)
+    with _StepEvents() as ev:
+        t0 = time.time()
+        img = a.generate(depth, "chair", size=512,
+                         num_inference_steps=GEN_STEPS)
+        wall = time.time() - t0
+    log(f"generate T2I-Adapter 512², {GEN_STEPS} steps: {wall:.3f} s, "
+        f"{ev.ms_per_step():.3f} ms per denoise step (CUDA events); spans "
+        f"(s, calls) " + json.dumps({k: [round(t, 4), c] for k, (t, c)
+                                     in a.timer.as_dict().items()}))
+    if img.shape != (512, 512, 3) or not np.isfinite(img).all():
+        fail("generate adapter 512²: bad image")
+    a.release()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "genpc_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1296,6 +1549,10 @@ def main() -> int:
                                         attribute=True)
         runs["run_lidar"] = drive_run_lidar(wroot, scans["CAR"][:2],
                                             counters)
+        # 5. generation
+        generation_card_vs_host()
+        runs["controlnet"] = drive_controlnet(root, flags, counters)
+        drive_generate_standalone()
         if "--profile" in sys.argv[1:]:
             profile_pass(root, flags)
     if not runs["registration"]["repeat"]:

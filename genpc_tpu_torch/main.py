@@ -10,12 +10,17 @@ sweeps, final refine), the reference's headline path; ``--aligned``
 (``trust_aligned_completion=True``) lets completions their backend
 declares aligned skip registration.  Work runs on ``cfg.device``
 (``--device``, the card by default).  With ``save`` set (the config
-default) the workspace files are written under ``--output``.  No
-weights are loaded: the ported backends are the synthetic ones.
+default) the workspace files are written under ``--output``.  The
+generation backend is the synthetic one unless ``--control-model
+controlnet`` (or ``adapter``) asks for the SDXL depth generator, at
+``--model-size tiny`` or ``full`` (SDXL widths), with seeded random
+weights unless ``cfg.weights_dir`` holds the checkpoints.
 
 Usage:
   python -m genpc_tpu_torch.main --config configs/redwood.yaml \
       --data-dir DATA --flags 01184 05117 [--batched] [--device cpu]
+  python -m genpc_tpu_torch.main --data-dir DATA --batched \
+      --control-model controlnet --model-size full
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Backend registry for the three generative stages (counterpart of
 genpc_tpu/models/backends.py).
 
-Only the model-free synthetic backends are ported.  The neural backends
-(ControlNet/T2I-Adapter, FLUX, Qwen-Image-Edit, RMBG, InstantMesh,
-TRELLIS, SF3D) wait for the ROADMAP item "neural backends"; asking for
-one raises.
+Ported: the model-free synthetic backends and the SDXL depth->image
+generator, ControlNet ('controlnet') or T2I-Adapter ('adapter'), built
+lazily on ``cfg.device``.  The other neural backends (FLUX,
+Qwen-Image-Edit, RMBG, InstantMesh, TRELLIS, SF3D) wait for the ROADMAP
+item "neural backends"; asking for one raises.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from genpc_tpu_torch.models.synthetic import (
     SyntheticDepth2Image, SyntheticImage23D, SyntheticRembg)
 
 _NEURAL = {
-    "depth2image": ("controlnet", "qwen", "flux", "adapter"),
+    "depth2image": ("qwen", "flux"),
     "rembg": ("RMBG", "rmbg"),
     "image23d": ("instantmesh", "trellis", "trellis_2", "sf3d"),
 }
@@ -33,6 +34,9 @@ def get_depth2image(name: str, cfg: Any = None):
     """Depth-conditioned image generator: .generate(depth, category, size)."""
     if name == "synthetic":
         return SyntheticDepth2Image(cfg)
+    if name in ("controlnet", "adapter"):
+        from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
+        return ControlNetDepth(cfg, adapter=name == "adapter")
     raise _not_ported("depth2image", name)
 
 

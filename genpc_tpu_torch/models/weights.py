@@ -1,0 +1,308 @@
+"""Parameters of the generative models: materialisation, seeded random
+weights, the reference's trees carried across, and checkpoint loading
+(counterpart of the SDXL parts of genpc_tpu/models/weights.py).
+
+  * ``materialize`` gives a module built on the meta device its storage
+    on a device, in one dtype (fp32 at the test presets, bf16 at full
+    size), and with a seed fills it with random weights: norm scales 1,
+    biases 0, everything else N(0, 0.02), each tensor drawn on the
+    device in its own dtype from a ``torch.Generator`` seeded by a stable
+    digest (CRC-32) of its name.  No fp32 copy of a bf16 tree is ever
+    made.  The reference folds the salted builtin ``hash()`` into its
+    keys (genpc_tpu/models/weights.py:168), so its random weights change
+    from one process to the next; these do not.
+  * ``from_flax`` turns a reference parameter tree (numpy leaves) into a
+    state dict for a port module, through the port's copies of the
+    reference's name maps and the layout transposes (conv HWIO -> OIHW,
+    dense (in, out) -> (out, in)).
+  * ``load_sdxl_controlnet`` / ``load_clip_towers`` read diffusers / HF
+    safetensors checkpoints in the reference's directory layout with a
+    reader of the port's own (no ``safetensors`` package needed) and load
+    them by name.
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import re
+import struct
+import zlib
+from collections.abc import Mapping
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from genpc_tpu_torch.models.layers import NORMS
+
+# ------------------------------------------------------- materialisation
+
+
+def _digest(seed: int, prefix: str, name: str) -> int:
+    return zlib.crc32(f"{seed}:{prefix}:{name}".encode())
+
+
+@torch.no_grad()
+def random_fill(module: nn.Module, seed: int = 0, prefix: str = "") -> None:
+    """Norm scales 1, biases 0, other tensors N(0, 0.02) drawn per tensor
+    from a generator seeded by the digest of (seed, prefix, name)."""
+    norm_scales = {f"{n}.weight" for n, m in module.named_modules()
+                   if isinstance(m, NORMS)}
+    for name, p in module.named_parameters():
+        if name in norm_scales:
+            p.fill_(1.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            g = torch.Generator(device=p.device)
+            g.manual_seed(_digest(seed, prefix, name))
+            p.normal_(0.0, 0.02, generator=g)
+
+
+def materialize(module: nn.Module, device: torch.device | str,
+                dtype: torch.dtype, seed: int | None = None,
+                prefix: str = "") -> nn.Module:
+    """Storage for a meta-built module on ``device`` in ``dtype``, for
+    inference; random weights when ``seed`` is given."""
+    module.to(dtype=dtype).to_empty(device=device).requires_grad_(False)
+    module.eval()
+    if seed is not None:
+        random_fill(module, seed, prefix)
+    return module
+
+
+# -------------------------------------------------------- name maps
+# Port parameter names are the diffusers / HF checkpoint names; these map
+# them to the reference's flax paths (copies of the reference's maps).
+
+def sdxl_unet_name_to_flax(name: str, num_levels: int = 3) -> str:
+    """diffusers UNet2DConditionModel name -> reference flax path."""
+    n = name
+    m = re.match(r"up_blocks\.(\d+)\.(.*)", n)
+    if m:
+        lvl = num_levels - 1 - int(m.group(1))
+        n = f"up_{lvl}.{m.group(2)}"
+    n = re.sub(r"^down_blocks\.(\d+)\.", r"core.down_\1.", n)
+    n = re.sub(r"^mid_block\.", "core.mid.", n)
+    n = re.sub(r"^conv_in\.", "core.conv_in.", n)
+    n = re.sub(r"resnets\.(\d+)\.", r"resnets_\1.", n)
+    n = re.sub(r"attentions\.(\d+)\.", r"attentions_\1.", n)
+    n = re.sub(r"transformer_blocks\.(\d+)\.", r"blocks_\1.", n)
+    n = re.sub(r"downsamplers\.0\.conv\.", "downsample.conv.", n)
+    n = re.sub(r"upsamplers\.0\.conv\.", "upsample.conv.", n)
+    n = re.sub(r"ff\.net\.0\.proj\.", "ff.proj_in.", n)
+    n = re.sub(r"ff\.net\.2\.", "ff.proj_out.", n)
+    n = re.sub(r"to_out\.0\.", "to_out.", n)
+    n = n.replace(".", "/")
+    if n.endswith("/weight"):
+        leaf = "scale" if re.search(
+            r"(^|/)(norm\d?|conv_norm_out|ln\w*)/weight$", n) else "kernel"
+        n = n[: -len("weight")] + leaf
+    return "params/" + n
+
+
+def controlnet_name_to_flax(name: str, num_levels: int = 3) -> str:
+    """diffusers ControlNetModel name -> reference flax path."""
+    n = name
+    n = re.sub(r"^controlnet_cond_embedding\.conv_in\.",
+               "cond_embedding.conv_in.", n)
+    n = re.sub(r"^controlnet_cond_embedding\.blocks\.(\d+)\.",
+               r"cond_embedding.blocks_\1.", n)
+    n = re.sub(r"^controlnet_cond_embedding\.conv_out\.",
+               "cond_embedding.conv_out.", n)
+    n = re.sub(r"^controlnet_down_blocks\.(\d+)\.", r"zero_down_\1.conv.", n)
+    n = re.sub(r"^controlnet_mid_block\.", "zero_mid.conv.", n)
+    if n != name:
+        n = n.replace(".", "/")
+        return "params/" + re.sub(r"/weight$", "/kernel", n)
+    return sdxl_unet_name_to_flax(name, num_levels)
+
+
+def vae_name_to_flax(name: str, num_levels: int = 4) -> str:
+    """diffusers AutoencoderKL name -> reference flax path."""
+    n = name
+    m = re.match(r"decoder\.up_blocks\.(\d+)\.(.*)", n)
+    if m:
+        lvl = num_levels - 1 - int(m.group(1))
+        rest = m.group(2)
+        rest = re.sub(r"^resnets\.(\d+)\.", rf"up_{lvl}_res_\1.", rest)
+        rest = re.sub(r"^upsamplers\.0\.", rf"up_{lvl}_us.", rest)
+        n = "decoder." + rest
+    n = re.sub(r"encoder\.down_blocks\.(\d+)\.resnets\.(\d+)\.",
+               r"encoder.down_\1_res_\2.", n)
+    n = re.sub(r"encoder\.down_blocks\.(\d+)\.downsamplers\.0\.",
+               r"encoder.down_\1_ds.", n)
+    n = re.sub(r"mid_block\.resnets\.(\d+)\.", r"mid_res_\1.", n)
+    n = re.sub(r"mid_block\.attentions\.0\.", "mid_attn.", n)
+    n = n.replace("group_norm.", "norm.")
+    n = n.replace("conv_norm_out.", "norm_out.")
+    n = n.replace("to_out.0.", "to_out.")
+    n = re.sub(r"mid_attn\.(to_q|to_k|to_v|to_out)\.",
+               r"mid_attn.attn.\1.", n)
+    n = n.replace(".", "/")
+    if n.endswith("/weight"):
+        leaf = "scale" if re.search(r"(^|/)(norm\w*)/weight$", n) else "kernel"
+        n = n[: -len("weight")] + leaf
+    return "params/" + n
+
+
+def clip_name_to_flax(name: str) -> str:
+    """HF CLIPTextModel(WithProjection) name -> reference flax path."""
+    n = name
+    n = re.sub(r"^text_model\.embeddings\.", "", n)
+    n = re.sub(r"^text_model\.encoder\.layers\.(\d+)\.", r"layers_\1.", n)
+    n = re.sub(r"^text_model\.final_layer_norm\.", "final_layer_norm.", n)
+    n = re.sub(r"\.self_attn\.", ".", n)
+    n = re.sub(r"\.mlp\.", ".", n)
+    n = n.replace(".", "/")
+    if n.endswith("/weight"):
+        if re.search(r"(^|/)(token_embedding|position_embedding)/weight$",
+                     n):
+            leaf = "embedding"
+        elif re.search(r"(^|/)(layer_norm\d|final_layer_norm)/weight$", n):
+            leaf = "scale"
+        else:
+            leaf = "kernel"
+        n = n[: -len("weight")] + leaf
+    return "params/" + n
+
+
+def adapter_name_to_flax(name: str) -> str:
+    """Port T2IAdapter name -> reference flax path (the same module paths;
+    the adapter has no norms)."""
+    n = name.replace(".", "/")
+    return "params/" + re.sub(r"/weight$", "/kernel", n)
+
+
+def flax_path(kind: str, name: str, num_levels: int = 0) -> str:
+    """The reference flax path of a port parameter of a model ``kind``
+    (unet, controlnet, vae, adapter, clip_l, clip_g)."""
+    if kind == "unet":
+        return sdxl_unet_name_to_flax(name, num_levels)
+    if kind == "controlnet":
+        return controlnet_name_to_flax(name, num_levels)
+    if kind == "vae":
+        return vae_name_to_flax(name, num_levels)
+    if kind == "adapter":
+        return adapter_name_to_flax(name)
+    if kind in ("clip_l", "clip_g"):
+        return clip_name_to_flax(name)
+    raise ValueError(f"unknown model kind {kind!r}")
+
+
+def _levels(module: nn.Module) -> int:
+    cfg = getattr(module, "cfg", None)
+    return len(getattr(cfg, "block_out_channels", ()))
+
+
+def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def flax_layout(name: str, leaf: np.ndarray) -> np.ndarray:
+    """A reference leaf in the port's layout: conv kernels HWIO -> OIHW,
+    dense kernels (in, out) -> (out, in); others as they are."""
+    if name.endswith("/kernel"):
+        return leaf.T if leaf.ndim == 2 else leaf.transpose(3, 2, 0, 1)
+    return leaf
+
+
+def from_flax(kind: str, flax_params, module: nn.Module
+              ) -> Dict[str, torch.Tensor]:
+    """State dict for ``module`` (a port model of ``kind``) from the
+    reference's parameter tree ({'params': ...} with numpy leaves).
+    Raises on a port parameter with no leaf, a shape that disagrees, or a
+    leaf no port parameter takes."""
+    flat = {"/".join(p): np.asarray(v) for p, v in _flatten(flax_params)}
+    levels = _levels(module)
+    out = {}
+    for name, p in module.state_dict().items():
+        path = flax_path(kind, name, levels)
+        if path not in flat:
+            raise KeyError(f"[{kind}] {name} -> {path}: no such leaf")
+        a = flax_layout(path, flat.pop(path))
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"[{kind}] {name}: shape {a.shape} vs "
+                             f"{tuple(p.shape)}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    if flat:
+        raise ValueError(f"[{kind}] leaves no port parameter takes: "
+                         f"{sorted(flat)[:8]}")
+    return out
+
+
+# ------------------------------------------------------- safetensors
+
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+              "BF16": np.uint16, "I64": np.int64, "I32": np.int32,
+              "I16": np.int16, "I8": np.int8, "U8": np.uint8,
+              "BOOL": np.bool_}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A .safetensors file: an 8-byte little-endian header length, a JSON
+    header (dtype, shape, data offsets of each tensor), then the data."""
+    out = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            for name, info in header.items():
+                if name == "__metadata__":
+                    continue
+                dt = np.dtype(_ST_DTYPES[info["dtype"]])
+                b, e = info["data_offsets"]
+                a = np.frombuffer(mm, dtype=dt, count=(e - b) // dt.itemsize,
+                                  offset=8 + n + b).copy()
+                t = torch.from_numpy(a)
+                if info["dtype"] == "BF16":
+                    t = t.view(torch.bfloat16)
+                out[name] = t.reshape(info["shape"])
+    return out
+
+
+def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    out = {}
+    for fn in sorted(os.listdir(path)):
+        if fn.endswith(".safetensors"):
+            out.update(read_safetensors(os.path.join(path, fn)))
+    return out
+
+
+def load_sdxl_controlnet(weights_dir: str, unet: nn.Module,
+                         controlnet: nn.Module | None = None,
+                         vae: nn.Module | None = None) -> None:
+    """Load ``<weights_dir>/unet``, ``/controlnet`` (strict: every name,
+    every shape) and ``/vae`` where they exist.  The VAE loads non-strict,
+    as in the reference: its mid-block attention has no q/k/v bias, which
+    a diffusers VAE carries; the misses are printed."""
+    for sub, mod in (("unet", unet), ("controlnet", controlnet)):
+        p = os.path.join(weights_dir, sub)
+        if mod is not None and os.path.isdir(p):
+            mod.load_state_dict(load_safetensors_dir(p), strict=True)
+    p = os.path.join(weights_dir, "vae")
+    if vae is not None and os.path.isdir(p):
+        missing, unexpected = vae.load_state_dict(load_safetensors_dir(p),
+                                                  strict=False)
+        if missing or unexpected:
+            print(f"[weights:vae] missing {missing[:5]}, unexpected "
+                  f"{unexpected[:5]}")
+
+
+def load_clip_towers(weights_dir: str, model_l: nn.Module,
+                     model_g: nn.Module) -> None:
+    """Load ``<weights_dir>/text_encoder`` (CLIP-L) and ``/text_encoder_2``
+    (OpenCLIP-G) where they exist, strictly."""
+    for sub, mod in (("text_encoder", model_l), ("text_encoder_2", model_g)):
+        p = os.path.join(weights_dir, sub)
+        if os.path.isdir(p):
+            sd = load_safetensors_dir(p)
+            sd.pop("text_model.embeddings.position_ids", None)
+            mod.load_state_dict(sd, strict=True)

@@ -250,7 +250,8 @@ def test_synthetic_depth2image_matches():
 
 def test_import_leaves_jax_out():
     # the port and every module in it, the per-object and Waymo entry
-    # points among them, import no jax (only tests do)
+    # points and the generative models among them, import no jax (only
+    # tests do)
     code = (
         "import importlib, pkgutil, sys\n"
         "import genpc_tpu_torch as p\n"
@@ -258,7 +259,10 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m.name)\n"
         "need = ['main', 'main_lidar', 'metrics.metric', 'tracing',\n"
         "        'pipeline.artifacts', 'pipeline.depth_prompting',\n"
-        "        'pipeline.registration', 'pipeline.scale_adapter']\n"
+        "        'pipeline.registration', 'pipeline.scale_adapter',\n"
+        "        'models.layers', 'models.schedulers', 'models.vae',\n"
+        "        'models.text_encoder', 'models.unet', 'models.adapter',\n"
+        "        'models.controlnet_depth', 'models.weights']\n"
         "missing = [n for n in need if 'genpc_tpu_torch.' + n\n"
         "           not in sys.modules]\n"
         "assert not missing, missing\n"
