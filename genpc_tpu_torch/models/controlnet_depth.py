@@ -133,15 +133,18 @@ class _GraphedEps:
                                       added_neg, guidance, control_scale,
                                       feats if backend.adapter else None)
 
-        # warm up on a side stream, so that cuDNN and cuBLAS choose and
-        # allocate their workspaces outside the capture
-        side = torch.cuda.Stream()
+        # warm up outside the capture, so that cuDNN and cuBLAS choose and
+        # allocate their workspaces first, on the capture stream (one for
+        # the process: a new side stream would keep a cuBLAS workspace of
+        # its own for as long as the process lives)
+        self.graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(self.graph)
+        side = capture.capture_stream
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             run()
         torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with capture:
             self.out = run()
 
     def __call__(self, tensors):

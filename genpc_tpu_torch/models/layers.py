@@ -12,8 +12,8 @@ layer by layer:
 The stored parameters keep the dtype they were materialised in (fp32 at
 the test presets, bf16 at full size), as the reference's trees do.
 
-fp32 layers run in full fp32 on the card: ``genpc_tpu_torch.runtime``
-turns TF32 off for matmuls and cuDNN convolutions.
+fp32 layers run in full fp32 on the card: ``genpc_tpu_torch.runtime``,
+imported here, turns TF32 off for matmuls and cuDNN convolutions.
 
 Layout is PyTorch's: images NCHW, tokens [B, T, C] in (h, w) row-major
 order, the order of the reference's NHWC reshape.  Parameter names are
@@ -32,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from genpc_tpu_torch import runtime  # noqa: F401  (TF32 off)
 
 BF16 = torch.bfloat16
 F32 = torch.float32
