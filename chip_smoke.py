@@ -67,6 +67,23 @@ Phases (any failure exits non-zero; nothing is caught):
      (FlopCounterMode) at 512² and 1024² over its time against the bf16
      peak, and the memory allocated before the backend against after
      its release().
+  6. image-to-3D: InstantMeshBackend at the tiny preset on the host and on
+     the card with one state dict, the pure multiview denoise on the same
+     draws and the density grid (views within IM_VIEW_TOL, SDF grids
+     within IM_SDF_TOL of the largest |sdf|); then run_batched on the
+     registration path over the first IM_OBJECTS objects with the
+     full-width InstantMesh backend (zero123plus, 75 multiview steps,
+     guidance 4.0, a 96³ SDF grid, marching tetrahedra, 163,840 surface
+     samples), all objects in one image23d_batch chunk: a warm-up and a
+     timed pass, the decoded views bitwise equal between them, the
+     image-to-3D stage split into the backend's spans (init, context,
+     denoise, decode, grid, marching, colors, release), ms a multiview
+     step (CUDA events), the peak memory, each mesh's vertices and faces,
+     CD/EMD and the K1-K5 launches; the host cost of a real surface (each
+     object's 96³ shell around its GT cloud: marching, sampling and
+     batched_reg); one step's FLOPs (FlopCounterMode) over its CUDA
+     graph's time against the bf16 peak; the memory back after release();
+     and the parameter count on the meta device.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the batched registration pass, and by path); the last line
@@ -663,7 +680,8 @@ PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
                 "lidar_car": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
                 "lidar_ped": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
                 "run_lidar": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
-                "controlnet": tuple(k[0] for k in KERNELS)}
+                "controlnet": tuple(k[0] for k in KERNELS),
+                "instantmesh": tuple(k[0] for k in KERNELS)}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -1482,6 +1500,333 @@ def drive_generate_standalone() -> None:
     a.release()
 
 
+# ------------------------------------------------------------ phase 6 ---
+
+#: the image-to-3D pass: configs/redwood.yaml's sizes with the InstantMesh
+#: backend at full width (zero123plus: 75 multiview steps, guidance 4.0;
+#: a 96³ SDF grid; 163,840 surface samples), synthetic depth->image and
+#: rembg, registration on
+INSTANTMESH = dict(REDWOOD, trust_aligned_completion=False,
+                   generative_model="instantmesh", model_size="full")
+#: objects of the pass: a random-weight mesh has millions of faces, whose
+#: marching on the host takes tens of seconds an object a pass, so the
+#: pass runs over the first IM_OBJECTS of the 13 objects (cut for the time
+#: limit; widths, steps and grid unchanged)
+IM_OBJECTS = 3
+#: card against host at the tiny preset: tests/test_torch_instantmesh.py's
+#: VIEW_TOL["bf16"] (max |d| over [0, 1] views: bf16 rounds at other
+#: points in the card's and the host's kernels, through 4 guided steps of
+#: a write and a read pass), and tests/torch_models_ref.py's TOL["bf16"]
+#: of the host's largest |sdf| for the SDF grids
+IM_VIEW_TOL = 0.12
+IM_SDF_TOL = 3e-2
+#: the shell around a GT cloud whose boundary is the real surface of the
+#: host-cost measurement: SDF = IM_SHELL - distance to the cloud
+IM_SHELL = 0.03
+
+
+def instantmesh_card_vs_host() -> None:
+    """InstantMeshBackend at the tiny preset on the host and on the card
+    with one state dict: context, condition latents, the pure multiview
+    denoise (4 steps, a CUDA graph a step on the card) on the same draws,
+    the decode and the density grid."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.lrm import InstantMeshBackend
+    host = InstantMeshBackend(load_config(device="cpu", model_size="tiny"))
+    host.init_params()
+    card = InstantMeshBackend(load_config(device="cuda", model_size="tiny"))
+    card.init_params({k: m.state_dict() for k, m in host.models().items()})
+    r = np.random.default_rng(0)
+    imgs01 = np.stack([host.prep_image(r.random((64, 64, 4)).astype(
+        np.float32)) for _ in range(2)])
+    draws = host.draws(2)
+    outs = []
+    for b in (host, card):
+        x = torch.from_numpy(imgs01.transpose(0, 3, 1, 2).copy())
+        cond = b.encode_condition(x.to(b.device) * 2 - 1)
+        lat, cn, sn = (d.to(b.device) for d in draws)
+        views = b.decode(b.denoise_latents(cond, b.encode_context(imgs01),
+                                           lat, cn, sn))
+        _, sdf = b.density_grid(views, b.cameras(2))
+        outs.append((views.cpu(), sdf.cpu()))
+    vgap = float((outs[0][0] - outs[1][0]).abs().max())
+    sgap = float((outs[0][1] - outs[1][1]).abs().max())
+    smax = float(outs[0][1].abs().max())
+    log(f"instantmesh card vs host, tiny, 2 objects, 4 steps: views max "
+        f"|d| {vgap:.3e} (tolerance {IM_VIEW_TOL}); SDF max |d| "
+        f"{sgap:.3e} of max |sdf| {smax:.3e} (tolerance {IM_SDF_TOL} of "
+        f"it)")
+    if not (torch.isfinite(outs[1][0]).all() and vgap <= IM_VIEW_TOL
+            and sgap <= IM_SDF_TOL * smax):
+        fail("instantmesh card vs host: views or SDF grids disagree")
+
+
+class _MultiviewEvents:
+    """CUDA events around each InstantMeshBackend.denoise_latents call,
+    for the milliseconds of one multiview step (write pass, guided read
+    pass and scheduler step, over the call's objects)."""
+
+    def __init__(self):
+        from genpc_tpu_torch.models.lrm import InstantMeshBackend
+        self.cls, self.calls = InstantMeshBackend, []
+        self.orig = InstantMeshBackend.denoise_latents
+
+    def __enter__(self):
+        import torch
+        orig, calls = self.orig, self.calls
+
+        def timed(backend, *a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(backend, *a, **k)
+            end.record()
+            calls.append((start, end, len(a[4])))
+            return out
+        self.cls.denoise_latents = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.denoise_latents = self.orig
+
+    def ms_per_step(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return (sum(s.elapsed_time(e) for s, e, _ in self.calls)
+                / sum(n for _, _, n in self.calls))
+
+
+def drive_instantmesh(root: str, flags, counters) -> dict:
+    """run_batched (registration path) with the full-width InstantMesh
+    backend over ``flags``, all in one image23d_batch chunk: a warm-up
+    pass, then the timed pass whose launches are counted.  Each pass
+    builds its backend from the same seed, so the decoded views of the
+    two passes must be bitwise equal; the memory allocated after the
+    backend's release() must be back at its level before the stage."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.lrm import InstantMeshBackend
+    from genpc_tpu_torch.parallel import batched_runner
+    from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
+    cfg = load_config(device="cuda", image23d_batch=len(flags),
+                      **INSTANTMESH)
+    stage2 = ScaleAdapter.scale_adapter_batch
+    decode = InstantMeshBackend.decode
+    release = batched_runner._release_backend
+    passes = []
+
+    def rec_stage2(self, arts):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = dict(base=torch.cuda.memory_allocated(), views=[], arts=arts,
+                   t0=time.time())
+        passes.append(rec)
+        stage2(self, arts)
+        torch.cuda.synchronize()
+        rec.update(wall=time.time() - rec["t0"],
+                   peak=torch.cuda.max_memory_allocated(),
+                   backend=self.image23d,
+                   meshes=[(len(a.complete_mesh.vertices),
+                            len(a.complete_mesh.faces)) for a in arts])
+
+    def rec_decode(self, latents):
+        out = decode(self, latents)
+        passes[-1]["views"].append(out.cpu().numpy())
+        return out
+
+    def rec_release(owner, attr):
+        release(owner, attr)
+        if attr == "image23d":
+            torch.cuda.synchronize()
+            passes[-1]["after_release"] = torch.cuda.memory_allocated()
+
+    with patched((ScaleAdapter, "scale_adapter_batch", rec_stage2),
+                 (InstantMeshBackend, "decode", rec_decode),
+                 (batched_runner, "_release_backend", rec_release)):
+        t0 = time.time()
+        batched_runner.run_batched(cfg, flags, root)
+        log(f"instantmesh: warm-up pass {time.time() - t0:.2f} s")
+        timings = {}
+        with _MultiviewEvents() as ev:
+            results, wall, launches = _counted(
+                "instantmesh", counters,
+                lambda: batched_runner.run_batched(cfg, flags, root,
+                                                   timings=timings))
+    warm, timed = passes
+    b = len(flags)
+    log(f"instantmesh: timed pass {wall:.3f} s, {b / wall * 60:.3f} "
+        f"objects/min; stage walls (s): " + json.dumps(
+            {k: round(v, 4) for k, v in timings.items()}))
+    step_ms = ev.ms_per_step()
+    above = timed["peak"] - timed["base"]
+    log(f"instantmesh: image-to-3D stage {timed['wall']:.3f} s for {b} "
+        f"objects in one chunk (image23d_batch {b}), "
+        f"{timed['backend'].mv_steps} multiview steps, a "
+        f"{timed['backend'].lrm_cfg.grid_res}³ grid: spans (s, calls) "
+        + json.dumps({k: [round(t, 4), c] for k, (t, c)
+                      in timed["backend"].timer.as_dict().items()})
+        + f"; {step_ms:.3f} ms per multiview step over {b} objects "
+        f"({step_ms / b:.3f} an object; CUDA events); peak allocated "
+        f"{timed['peak'] / 2**30:.3f} GiB ({above / 2**30:.3f} GiB above "
+        f"the stage's start)")
+    log(f"instantmesh: memory allocated {timed['base'] / 2**20:.1f} MiB "
+        f"before the backend's weights, {timed['after_release'] / 2**20:.1f}"
+        f" MiB after its release()")
+    log("instantmesh: meshes (vertices, faces) by object, warm-up | timed: "
+        + json.dumps({f: [list(w), list(t)] for f, w, t in zip(
+            flags, warm["meshes"], timed["meshes"])}))
+    for f in flags:
+        log(f"  {f}: CD x100 {results[f]['cd'] * 100:.4f} / EMD x100 "
+            f"{results[f]['emd'] * 100:.4f}")
+    cds = np.array([results[f]["cd"] for f in flags])
+    emds = np.array([results[f]["emd"] for f in flags])
+    log(f"instantmesh: mean CD x100 {cds.mean() * 100:.4f}, mean EMD x100 "
+        f"{emds.mean() * 100:.4f} over {b} objects")
+    if set(results) != set(flags) or not (np.isfinite(cds).all()
+                                          and np.isfinite(emds).all()):
+        fail("instantmesh: missing objects or non-finite CD/EMD")
+    vs = timed["backend"].lrm_cfg.view_size
+    views = [np.concatenate(p["views"]) for p in passes]
+    if views[1].shape != (b, 6, 3, vs, vs) or \
+            not np.isfinite(views[1]).all():
+        fail(f"instantmesh: views of shape {views[1].shape}")
+    same = np.array_equal(views[0], views[1])
+    log(f"instantmesh: warm-up and timed passes decode bitwise equal "
+        f"views: {same}")
+    if not same:
+        fail("instantmesh: the two passes decode different views")
+    if timed["after_release"] - timed["base"] > RELEASE_SLACK:
+        fail("instantmesh: release() left the backend's memory allocated")
+    return {"results": results, "launches": launches, "wall": wall,
+            "arts": timed["arts"], "cfg": cfg}
+
+
+def instantmesh_step_flops(n_objects: int) -> None:
+    """One multiview step at full width over n_objects (the pass's
+    chunk): its FLOPs (FlopCounterMode, eager) over the CUDA graph
+    replay's time against the bf16 peak, the eager time beside it; then
+    the memory back after release(), and the parameter count on the
+    meta device."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.lrm import InstantMeshBackend
+    from genpc_tpu_torch.models.schedulers import EulerAncestral
+    cfg = load_config(device="cuda", model_size=INSTANTMESH["model_size"])
+    meta = InstantMeshBackend(cfg)
+    count = sum(p.numel() for m in meta.models().values()
+                for p in m.parameters())
+    log(f"instantmesh parameters (meta device): {count:,} in the models, "
+        f"{count + meta.txt_cfg.max_len:,} with the 77 ramping "
+        f"coefficients: " + json.dumps({k: sum(
+            p.numel() for p in m.parameters())
+            for k, m in meta.models().items()}))
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    b = InstantMeshBackend(cfg)
+    b.init_params()
+    r = np.random.default_rng(0)
+    imgs01 = np.stack([b.prep_image(r.random((512, 512, 4)).astype(
+        np.float32)) for _ in range(n_objects)])
+    sched = EulerAncestral(b.mv_steps, spacing="trailing", prediction="v",
+                           device="cuda")
+    with torch.inference_mode():
+        ctx = b.encode_context(imgs01)
+        x = torch.from_numpy(imgs01.transpose(0, 3, 1, 2).copy())
+        cond = b.encode_condition(x.to(b.device) * 2 - 1)
+        lat, cn, sn = b.draws(n_objects)
+        i = b.mv_steps // 2
+        tensors = [lat, cond, ctx, torch.tensor([i], device=b.device),
+                   cn[i], sn[i]]
+        with FlopCounterMode(display=False) as fc:
+            b.mv_step(*tensors, sched)
+        flops = fc.get_total_flops()
+        ms = cuda_ms(lambda: b._step(sched, tensors), reps=5)
+        eager_ms = cuda_ms(lambda: b.mv_step(*tensors, sched), reps=3)
+    h, (gh, gw) = cond.shape[-1], b.grid_hw()
+    log(f"multiview step FLOPs over {n_objects} objects: "
+        f"{flops / 1e12:.4f} TFLOP (FlopCounterMode: a write pass over "
+        f"{2 * n_objects} {h}x{h} condition latents, a read pass over "
+        f"{2 * n_objects} {gh}x{gw} samples) in {ms:.3f} ms (its CUDA graph; "
+        f"CUDA events, median of 5) = {flops / ms / 1e9:.2f} TFLOP/s, "
+        f"{flops / ms / 1e-3 / BF16_PEAK:.4f} of the H100 SXM's "
+        f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16 dense peak (data sheet); "
+        f"eager, behind a device sleep: {eager_ms:.3f} ms")
+    b.release()
+    del b, tensors, ctx, cond, lat, cn, sn
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"instantmesh release(): memory allocated {base / 2**20:.1f} MiB "
+        f"before the backend was built, {after / 2**20:.1f} MiB after "
+        f"release()")
+    if after - base > RELEASE_SLACK:
+        fail("instantmesh release() left the backend's memory allocated")
+
+
+def instantmesh_real_surface(root: str, run: dict) -> None:
+    """The host cost of a real surface: for each object of the timed
+    pass, a 96³ SDF grid IM_SHELL - (distance to its GT cloud) (the
+    distances from K1 on the card), marching tetrahedra at level 0,
+    163,840 surface samples, then batched_reg over all of them with those
+    meshes as the completions.  Fed here only: nothing in the program
+    changes."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.io.glb import Mesh, sample_mesh_surface
+    from genpc_tpu_torch.io.ply import load_xyz
+    from genpc_tpu_torch.ops.chamfer import nearest_neighbor
+    from genpc_tpu_torch.ops.marching import marching_tetrahedra
+    from genpc_tpu_torch.parallel.batched_runner import batched_reg
+    from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts
+    cfg, arts = run["cfg"], run["arts"]
+    res = 96
+    g = torch.linspace(-1.0, 1.0, res, device="cuda")
+    grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                       dim=-1).reshape(-1, 3)
+    n = int(cfg.glb_sample_points)
+    t_march = t_sample = 0.0
+    sizes, new = [], []
+    for art in arts:
+        gt, _ = load_xyz(os.path.join(root, "GT", f"{art.flag}.ply"))
+        d2, _ = nearest_neighbor(grid, torch.as_tensor(gt, device="cuda"))
+        sdf = (IM_SHELL - d2.clamp_min(0).sqrt()).reshape(res, res, res)
+        sdf = sdf.cpu().numpy()
+        t0 = time.time()
+        v, f = marching_tetrahedra(sdf, level=0.0)
+        t1 = time.time()
+        mesh = Mesh(v, f, np.full(v.shape, 0.5, np.float32))
+        sample_mesh_surface(mesh, n)
+        t_march += t1 - t0
+        t_sample += time.time() - t1
+        sizes.append((len(v), len(f)))
+        new.append(ObjectArtifacts(
+            flag=art.flag, color_xyz=art.color_xyz,
+            color_rgb=art.color_rgb, complete_mesh=mesh))
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    batched_reg(cfg, new, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    log(f"instantmesh real surface ({res}³ grid of {IM_SHELL} minus the "
+        f"distance to each GT cloud): meshes (vertices, faces) "
+        + json.dumps([list(x) for x in sizes])
+        + f"; marching {t_march:.3f} s and {n:,}-point sampling "
+        f"{t_sample:.3f} s for {len(new)} objects (host); batched_reg "
+        f"{wall:.3f} s (its sampling included): " + json.dumps(
+            {k: round(v, 4) for k, v in timings.items()}))
+    if not all(a.fused_xyz is not None and np.isfinite(a.fused_xyz).all()
+               for a in new):
+        fail("instantmesh real surface: a fused cloud is missing")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "genpc_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1553,6 +1898,12 @@ def main() -> int:
         generation_card_vs_host()
         runs["controlnet"] = drive_controlnet(root, flags, counters)
         drive_generate_standalone()
+        # 6. image-to-3D
+        instantmesh_card_vs_host()
+        runs["instantmesh"] = drive_instantmesh(root, flags[:IM_OBJECTS],
+                                                counters)
+        instantmesh_real_surface(root, runs["instantmesh"])
+        instantmesh_step_flops(IM_OBJECTS)
         if "--profile" in sys.argv[1:]:
             profile_pass(root, flags)
     if not runs["registration"]["repeat"]:
@@ -1571,6 +1922,7 @@ def main() -> int:
             f"x100 {sum(m['emd'] for m in res) / len(res) * 100:.4f} over "
             f"{len(res)} objects")
 
+    log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": runs["registration"]["launches"][name],

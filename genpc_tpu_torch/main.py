@@ -11,16 +11,21 @@ sweeps, final refine), the reference's headline path; ``--aligned``
 declares aligned skip registration.  Work runs on ``cfg.device``
 (``--device``, the card by default).  With ``save`` set (the config
 default) the workspace files are written under ``--output``.  The
-generation backend is the synthetic one unless ``--control-model
-controlnet`` (or ``adapter``) asks for the SDXL depth generator, at
-``--model-size tiny`` or ``full`` (SDXL widths), with seeded random
-weights unless ``cfg.weights_dir`` holds the checkpoints.
+generation backends are the synthetic ones unless ``--control-model
+controlnet`` (or ``adapter``) asks for the SDXL depth generator or
+``--generative-model instantmesh`` for the InstantMesh image-to-3D
+backend (per object through ``ScaleAdapter.scale_adapter``, batched
+through ``generate_meshes_batch`` in chunks of ``image23d_batch``), at
+``--model-size tiny`` or ``full`` (the published widths), with seeded
+random weights unless ``cfg.weights_dir`` holds the checkpoints.
 
 Usage:
   python -m genpc_tpu_torch.main --config configs/redwood.yaml \
       --data-dir DATA --flags 01184 05117 [--batched] [--device cpu]
   python -m genpc_tpu_torch.main --data-dir DATA --batched \
       --control-model controlnet --model-size full
+  python -m genpc_tpu_torch.main --data-dir DATA --batched \
+      --generative-model instantmesh --model-size full
 """
 
 from __future__ import annotations

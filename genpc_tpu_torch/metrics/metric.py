@@ -9,12 +9,15 @@
     completion; K1).
   * ``evaluate_workspace`` ≡ metric.py:10-48 — score a workspace's fused
     cloud against its GT, optionally with the GT turned 180° about x.
+  * ``evaluate_mesh`` ≡ metric.py:49-94 — sample a predicted mesh's
+    surface (io/glb), fit it into the GT's bounding box with the floors
+    level, then ``evaluate_pair``.
   * ``summarize`` — the per-category print and averages of main.py.
 
 Inputs are numpy; ``device`` is where the work runs (the card unless
-the caller asks for the CPU).  Not ported: ``evaluate_mesh`` (it needs
-io/glb) and the reference's sequence-parallel chamfer over a device
-mesh with an ``sp`` axis; both raise.
+the caller asks for the CPU).  Not ported: the reference's
+sequence-parallel chamfer over a device mesh with an ``sp`` axis; it
+raises.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from genpc_tpu_torch.categories import get_category
 from genpc_tpu_torch.geometry.transforms import get_rotate_matrix
+from genpc_tpu_torch.io.glb import sample_mesh_surface
 from genpc_tpu_torch.io.ply import load_ply
 from genpc_tpu_torch.metrics.losses import CompletionLoss
 from genpc_tpu_torch.ops.chamfer import nearest_neighbor
@@ -88,11 +92,24 @@ def evaluate_workspace(flag: str, workspace_root: str, gt_dir: str,
 
 def evaluate_mesh(pred_mesh, gt_points: np.ndarray, num_points: int = 16384,
                   normalize_by_gt_bbox: bool = True,
-                  with_emd: bool = False) -> Dict[str, float]:
-    """Mesh-vs-cloud evaluation: needs io/glb's surface sampling."""
-    raise NotImplementedError(
-        "evaluate_mesh needs io/glb, which is not ported (ROADMAP: neural "
-        "backends, io/glb and meshes)")
+                  with_emd: bool = False,
+                  device: torch.device | str = "cuda") -> Dict[str, float]:
+    """Mesh-vs-cloud evaluation (reference: metric.py:49-94
+    metric_sds_redwood): sample the predicted mesh, optionally rescale it
+    into the GT's bounding box (centre, longest side, then the floors
+    level in y), then run ``evaluate_pair``."""
+    pred, _ = sample_mesh_surface(pred_mesh, max(num_points * 2, 32768))
+    gt = np.asarray(gt_points, np.float32)
+    if normalize_by_gt_bbox:
+        p, ref = pred.astype(np.float64), gt.astype(np.float64)
+        p_c = (p.max(0) + p.min(0)) / 2
+        r_c = (ref.max(0) + ref.min(0)) / 2
+        scale = ((ref.max(0) - ref.min(0)).max()
+                 / max((p.max(0) - p.min(0)).max(), 1e-9))
+        pred = (p - p_c) * scale + r_c
+        pred[:, 1] += ref[:, 1].min() - pred[:, 1].min()
+    return evaluate_pair(pred.astype(np.float32), gt, num_points=num_points,
+                         with_emd=with_emd, device=device)
 
 
 def summarize(results: Dict[str, Dict[str, float]]) -> Dict[str, float]:

@@ -1,25 +1,41 @@
 """Backend registry for the three generative stages (counterpart of
 genpc_tpu/models/backends.py).
 
-Ported: the model-free synthetic backends and the SDXL depth->image
-generator, ControlNet ('controlnet') or T2I-Adapter ('adapter'), built
-lazily on ``cfg.device``.  The other neural backends (FLUX,
-Qwen-Image-Edit, RMBG, InstantMesh, TRELLIS, SF3D) wait for the ROADMAP
-item "neural backends"; asking for one raises.
+Ported: the model-free synthetic backends, the SDXL depth->image
+generator, ControlNet ('controlnet') or T2I-Adapter ('adapter'), and the
+InstantMesh image-to-3D backend ('instantmesh'), each built lazily on
+``cfg.device``.  The other neural backends (FLUX, Qwen-Image-Edit, RMBG,
+TRELLIS, SF3D) wait for the ROADMAP item "neural backends"; asking for
+one raises.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
+
+from genpc_tpu_torch.models.resample import resize_uint8
 from genpc_tpu_torch.models.synthetic import (
     SyntheticDepth2Image, SyntheticImage23D, SyntheticRembg)
 
 _NEURAL = {
     "depth2image": ("qwen", "flux"),
     "rembg": ("RMBG", "rmbg"),
-    "image23d": ("instantmesh", "trellis", "trellis_2", "sf3d"),
+    "image23d": ("trellis", "trellis_2", "sf3d"),
 }
+
+
+def prep_rgb(image: np.ndarray, size: int) -> np.ndarray:
+    """RGBA/RGB [H, W, *] in [0, 1] -> alpha-matted RGB [size, size, 3]:
+    the matte every image-to-3D backend applies before encoding, resized
+    as Pillow's bilinear filter resizes it (bit for bit)."""
+    img = np.asarray(image, np.float32)
+    if img.shape[-1] == 4:
+        img = img[..., :3] * img[..., 3:4]
+    u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    return np.asarray(resize_uint8(u8, size, "bilinear"),
+                      np.float32) / 255.0
 
 
 def _not_ported(stage: str, name: str):
@@ -48,7 +64,11 @@ def get_rembg(name: str, cfg: Any = None):
 
 
 def get_image23d(name: str, cfg: Any = None):
-    """Image-to-3D: callable(flag, image_nobg, partial_xyz=..., ...)."""
+    """Image-to-3D: callable(flag, image_nobg, partial_xyz=..., ...) ->
+    (points, colours) or a Mesh."""
     if name == "synthetic":
         return SyntheticImage23D(cfg)
+    if name == "instantmesh":
+        from genpc_tpu_torch.models.lrm import InstantMeshBackend
+        return InstantMeshBackend(cfg)
     raise _not_ported("image23d", name)

@@ -33,6 +33,7 @@ from torch import nn
 from genpc_tpu_torch.categories import get_category
 from genpc_tpu_torch.models.adapter import T2IAdapter
 from genpc_tpu_torch.models.layers import BF16, F32, timestep_embedding
+from genpc_tpu_torch.models.resample import resize_lanczos_uint8
 from genpc_tpu_torch.models.schedulers import EulerAncestral, cfg_combine
 from genpc_tpu_torch.models.text_encoder import PromptEncoder
 from genpc_tpu_torch.models.unet import ControlNet, UNet2DCondition, UNetConfig
@@ -51,68 +52,6 @@ NEGATIVE_PROMPT = ("longbody, lowres, bad anatomy, bad hands, missing "
 #: the random weights' seed (the reference initialises from PRNGKey(0)
 #: whatever the backend's seed)
 WEIGHT_SEED = 0
-
-
-# ------------------------------------------------------------ Lanczos-3
-
-_PRECISION_BITS = 22     # Pillow's 8-bit resampling: 32 - 8 - 2
-
-
-def _sinc(x: float) -> float:
-    if x == 0.0:
-        return 1.0
-    x = x * math.pi
-    return math.sin(x) / x
-
-
-def _lanczos3(x: float) -> float:
-    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
-
-
-def _lanczos_coeffs(in_size: int, out_size: int):
-    """Pillow's precompute_coeffs + normalize_coeffs_8bpc: per output
-    pixel the first input index and ksize 22-bit fixed-point weights."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    idx = np.zeros((out_size, ksize), np.int64)
-    k = np.zeros((out_size, ksize), np.int64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = [_lanczos3((x + xmin - center + 0.5) / filterscale)
-             for x in range(xmax)]
-        ww = 0.0
-        for wi in w:
-            ww += wi
-        for x, wi in enumerate(w):
-            wi = wi / ww if ww != 0.0 else wi
-            k[xx, x] = int((-0.5 if wi < 0 else 0.5)
-                           + wi * (1 << _PRECISION_BITS))
-            idx[xx, x] = xmin + x
-    return idx, k
-
-
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    idx, k = _lanczos_coeffs(img.shape[axis], out_size)
-    a = np.moveaxis(img.astype(np.int64), axis, 0)            # [in, ...]
-    acc = (a[idx] * k.reshape(k.shape + (1,) * (a.ndim - 1))).sum(1)
-    acc = (acc + (1 << (_PRECISION_BITS - 1))) >> _PRECISION_BITS
-    return np.moveaxis(np.clip(acc, 0, 255).astype(np.uint8), 0, axis)
-
-
-def resize_lanczos_uint8(img: np.ndarray, size: int) -> np.ndarray:
-    """uint8 [H, W, C] -> uint8 [size, size, C] as Pillow's
-    ``Image.resize((size, size), Image.LANCZOS)`` computes it: the
-    horizontal pass first, each pass rounded and clipped to uint8."""
-    out = img
-    if img.shape[1] != size:
-        out = _resample_axis(out, size, axis=1)
-    if img.shape[0] != size:
-        out = _resample_axis(out, size, axis=0)
-    return out
 
 
 # ------------------------------------------------------------- backend

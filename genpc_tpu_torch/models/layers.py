@@ -21,7 +21,8 @@ the diffusers checkpoints' (``to_out.0``, ``ff.net.0.proj``,
 ``downsamplers.0.conv``), so a real state dict loads by name.
 
 Attention is ``F.scaled_dot_product_attention`` (the reference leaves
-it to XLA's ``jax.nn.dot_product_attention``).
+it to XLA's ``jax.nn.dot_product_attention``).  ``RefBank`` carries
+zero123plus's reference attention through a UNet's transformer blocks.
 """
 
 from __future__ import annotations
@@ -73,13 +74,15 @@ class Linear(nn.Module):
 
 class Conv2d(nn.Module):
     """Square-kernel convolution computing in ``compute``; padding is
-    symmetric, k // 2 (flax ``padding=1`` for 3x3, none for 1x1)."""
+    symmetric, k // 2 unless given (flax ``padding=1`` for 3x3, none for
+    1x1 and for a patch embedding, whose stride is its kernel)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 3,
                  stride: int = 1, bias: bool = True,
-                 compute: torch.dtype = BF16):
+                 compute: torch.dtype = BF16, padding: Optional[int] = None):
         super().__init__()
-        self.compute, self.stride, self.padding = compute, stride, k // 2
+        self.compute, self.stride = compute, stride
+        self.padding = k // 2 if padding is None else padding
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
@@ -165,11 +168,7 @@ class Attention(nn.Module):
         self.to_v = Linear(ctx, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, dim)])
 
-    def forward(self, x, context=None, ref=None):
-        if ref is not None:
-            raise NotImplementedError(
-                "reference attention (RefBank, zero123plus) is not ported "
-                "(ROADMAP: neural backends)")
+    def forward(self, x, context=None):
         context = x if context is None else context
         out = attention(self.to_q(x), self.to_k(context), self.to_v(context),
                         self.heads)
@@ -199,6 +198,34 @@ class FeedForward(nn.Module):
         return self.net[2](self.net[0](x))
 
 
+class RefBank:
+    """Reference-attention token store (zero123plus conditioning).
+
+    Each multiview step runs the UNet twice: a WRITE pass over the
+    noised condition latents records every self-attention's post-norm
+    tokens; the READ pass over the sample concatenates the recorded
+    tokens into each attn1's keys and values.  Both passes visit the
+    attention sites in the same order, so the bank is positional.
+    """
+
+    def __init__(self, mode: str, tokens=None):
+        if mode not in ("w", "r"):
+            raise ValueError(f"RefBank mode {mode!r}: 'w' or 'r'")
+        self.mode = mode
+        self.tokens = [] if tokens is None else list(tokens)
+        self._i = 0
+
+    def visit(self, h):
+        """WRITE: record h, return None.  READ: the tokens recorded at
+        this site."""
+        if self.mode == "w":
+            self.tokens.append(h)
+            return None
+        t = self.tokens[self._i]
+        self._i += 1
+        return t
+
+
 class TransformerBlock(nn.Module):
     """Self-attn + cross-attn + FF, pre-LayerNorm (BasicTransformerBlock)."""
 
@@ -212,8 +239,14 @@ class TransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context=None, ref=None):
-        x = x + self.attn1(self.norm1(x), ref=ref)
+    def forward(self, x, context=None, ref: Optional[RefBank] = None):
+        h = self.norm1(x)
+        ctx1 = None
+        if ref is not None:
+            r = ref.visit(h)
+            if r is not None:
+                ctx1 = torch.cat([h, r.to(h.dtype)], dim=1)
+        x = x + self.attn1(h, ctx1)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 

@@ -28,6 +28,15 @@ def _f32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
+def at(table: torch.Tensor, i):
+    """table[i] for a step index that is an int or a [1] index tensor on
+    the table's device (a CUDA graph of a step reads its index from a
+    buffer: ``index_select`` keeps the read on the device)."""
+    if isinstance(i, torch.Tensor):
+        return table.index_select(0, i)
+    return table[i]
+
+
 @dataclass
 class EulerAncestral:
     """Euler-ancestral sampler over the discrete sigma schedule
@@ -54,24 +63,25 @@ class EulerAncestral:
         self.sigmas = _f32(np.append(sig, 0.0), self.device)
         self.init_noise_sigma = float(np.sqrt(sig[0] ** 2 + 1.0))
 
-    def scale_model_input(self, sample, i: int):
-        return sample / torch.sqrt(self.sigmas[i] ** 2 + 1.0)
+    def scale_model_input(self, sample, i):
+        return sample / torch.sqrt(at(self.sigmas, i) ** 2 + 1.0)
 
-    def add_noise(self, x0, noise, i: int):
+    def add_noise(self, x0, noise, i):
         """Unscaled sample at step i's noise level: x0 + sigma * noise."""
-        return x0 + self.sigmas[i] * noise
+        return x0 + at(self.sigmas, i) * noise
 
-    def pred_x0(self, model_out, i: int, sample):
-        sigma = self.sigmas[i]
+    def pred_x0(self, model_out, i, sample):
+        sigma = at(self.sigmas, i)
         if self.prediction == "v":
             return (sample / (sigma ** 2 + 1.0)
                     - model_out * sigma / torch.sqrt(sigma ** 2 + 1.0))
         return sample - sigma * model_out
 
-    def step(self, model_out, i: int, sample, noise):
-        """One ancestral step; noise ~ N(0, 1) of the sample's shape."""
-        sigma = self.sigmas[i]
-        sigma_next = self.sigmas[i + 1]
+    def step(self, model_out, i, sample, noise):
+        """One ancestral step; noise ~ N(0, 1) of the sample's shape; i an
+        int or a [1] index tensor."""
+        sigma = at(self.sigmas, i)
+        sigma_next = at(self.sigmas, i + 1)
         pred_x0 = self.pred_x0(model_out, i, sample)
         var = torch.clamp_min(sigma_next ** 2 * (sigma ** 2 - sigma_next ** 2)
                               / torch.clamp_min(sigma ** 2, 1e-12), 0.0)

@@ -1,11 +1,17 @@
-"""CLIP text towers and the CLIP BPE tokenizer (counterpart of the text
-half of genpc_tpu/models/text_encoder.py).
+"""CLIP text and vision towers and the CLIP BPE tokenizer (counterpart of
+genpc_tpu/models/text_encoder.py).
 
 SDXL conditions on two CLIP text towers: CLIP-L (quick-gelu) and
 OpenCLIP-G (tanh gelu, with a text projection).  The context is the
 PENULTIMATE layer's hidden states of both towers side by side; the
 pooled vector is the G tower's EOS-token state after the final layer
 norm, projected.  Parameter names are HF CLIPTextModel(WithProjection)'s.
+
+zero123plus conditions on a CLIP ViT-H vision tower (``CLIPVisionModel``,
+HF CLIPVisionModelWithProjection's names): its projected class-token
+embedding is ramped into the SD2 text context.  ``clip_preprocess``
+resizes with Pillow's bicubic filter, bit for bit (models/resample.py),
+and normalises with CLIP's mean and std.
 
 Tokenization: the CLIP byte-pair encoding when the checkpoint's
 vocab.json / merges.txt ship in ``<weights_dir>/tokenizer`` (it needs
@@ -29,7 +35,8 @@ import torch
 from torch import nn
 
 from genpc_tpu_torch.models.layers import (
-    F32, LayerNorm, Linear, attention, gelu_tanh)
+    F32, Conv2d, LayerNorm, Linear, attention, gelu_tanh)
+from genpc_tpu_torch.models.resample import resize_uint8
 
 
 @dataclass(frozen=True)
@@ -59,6 +66,29 @@ class CLIPTextConfig:
         if name == "clip_sd2":
             return cls(hidden_dim=1024, num_layers=23, num_heads=16,
                        act="gelu")
+        raise ValueError(name)
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    hidden_dim: int = 1280
+    num_layers: int = 32
+    num_heads: int = 16
+    patch: int = 14
+    image_size: int = 224
+    act: str = "gelu"
+    proj_dim: int = 1024
+
+    @classmethod
+    def preset(cls, name: str) -> "CLIPVisionConfig":
+        if name == "tiny":
+            # the projection matches the tiny text width it is ramped into
+            return cls(hidden_dim=64, num_layers=2, num_heads=4, patch=8,
+                       image_size=32, proj_dim=64)
+        if name == "vit_h":
+            # the zero123plus image encoder: OpenCLIP ViT-H, projected to
+            # the SD2 text width
+            return cls()
         raise ValueError(name)
 
 
@@ -153,6 +183,70 @@ class CLIPTextModel(nn.Module):
         if self.cfg.proj_dim:
             pooled = self.text_projection(pooled)
         return x, penult, pooled
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        d = cfg.hidden_dim
+        self.class_embedding = nn.Parameter(torch.empty(d))
+        self.patch_embedding = Conv2d(3, d, k=cfg.patch, stride=cfg.patch,
+                                      bias=False, padding=0)
+        self.position_embedding = nn.Embedding(
+            1 + (cfg.image_size // cfg.patch) ** 2, d)
+
+    def forward(self, imgs):
+        x = self.patch_embedding(imgs).flatten(2).transpose(1, 2)
+        # the concatenation promotes, as jnp.concatenate does
+        dt = torch.promote_types(x.dtype, self.class_embedding.dtype)
+        cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x.to(dt)], dim=1)
+        pos = torch.arange(x.shape[1], device=x.device)
+        return x + self.position_embedding(pos)[None]
+
+
+class _VisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.embeddings = _VisionEmbeddings(cfg)
+        self.pre_layrnorm = LayerNorm(cfg.hidden_dim)   # HF's spelling
+        self.encoder = _Encoder(CLIPTextConfig(
+            hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+            num_heads=cfg.num_heads, act=cfg.act))
+        self.post_layernorm = LayerNorm(cfg.hidden_dim)
+
+
+class CLIPVisionModel(nn.Module):
+    """HF CLIPVisionModelWithProjection: images [B, 3, S, S] (CLIP-
+    normalised) -> (tokens, image_embeds), image_embeds the projected
+    post-layernorm class token.  Bidirectional attention."""
+
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision_model = _VisionTransformer(cfg)
+        self.visual_projection = Linear(cfg.hidden_dim, cfg.proj_dim,
+                                        bias=False, compute=F32)
+
+    def forward(self, imgs) -> Tuple[torch.Tensor, torch.Tensor]:
+        vm = self.vision_model
+        x = vm.pre_layrnorm(vm.embeddings(imgs))
+        for blk in vm.encoder.layers:
+            x = blk(x, causal=False)
+        pooled = vm.post_layernorm(x[:, 0])
+        return x, self.visual_projection(pooled)
+
+
+CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def clip_preprocess(img: np.ndarray, size: int) -> np.ndarray:
+    """[H, W, 3] in [0, 1] -> CLIP-normalised [1, size, size, 3] (NHWC,
+    numpy, as the reference returns it)."""
+    u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    x = np.asarray(resize_uint8(u8, size, "bicubic"), np.float32) / 255.0
+    return ((x - CLIP_IMAGE_MEAN) / CLIP_IMAGE_STD)[None]
 
 
 # ------------------------------------------------------------- tokenizers

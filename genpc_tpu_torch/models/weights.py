@@ -1,6 +1,7 @@
 """Parameters of the generative models: materialisation, seeded random
 weights, the reference's trees carried across, and checkpoint loading
-(counterpart of the SDXL parts of genpc_tpu/models/weights.py).
+(counterpart of the SDXL and InstantMesh parts of
+genpc_tpu/models/weights.py).
 
   * ``materialize`` gives a module built on the meta device its storage
     on a device, in one dtype (fp32 at the test presets, bf16 at full
@@ -15,10 +16,10 @@ weights, the reference's trees carried across, and checkpoint loading
     state dict for a port module, through the port's copies of the
     reference's name maps and the layout transposes (conv HWIO -> OIHW,
     dense (in, out) -> (out, in)).
-  * ``load_sdxl_controlnet`` / ``load_clip_towers`` read diffusers / HF
-    safetensors checkpoints in the reference's directory layout with a
-    reader of the port's own (no ``safetensors`` package needed) and load
-    them by name.
+  * ``load_sdxl_controlnet`` / ``load_clip_towers`` / ``load_instantmesh``
+    read diffusers / HF / InstantMesh safetensors checkpoints in the
+    reference's directory layout with a reader of the port's own (no
+    ``safetensors`` package needed) and load them by name.
 """
 
 from __future__ import annotations
@@ -170,6 +171,93 @@ def clip_name_to_flax(name: str) -> str:
     return "params/" + n
 
 
+def clip_vision_name_to_flax(name: str) -> str:
+    """HF CLIPVisionModelWithProjection name -> reference flax path."""
+    n = name
+    n = re.sub(r"^vision_model\.embeddings\.", "", n)
+    n = re.sub(r"^vision_model\.encoder\.layers\.(\d+)\.", r"layers_\1.", n)
+    n = re.sub(r"^vision_model\.", "", n)
+    n = re.sub(r"\.self_attn\.", ".", n)
+    n = re.sub(r"\.mlp\.", ".", n)
+    n = n.replace(".", "/")
+    if n.endswith("/weight"):
+        if n == "position_embedding/weight":
+            leaf = "embedding"
+        elif re.search(r"(^|/)(layer_norm\d|pre_layrnorm|post_layernorm)"
+                       r"/weight$", n):
+            leaf = "scale"
+        else:
+            leaf = "kernel"
+        n = n[: -len("weight")] + leaf
+    return "params/" + n
+
+
+def instantmesh_name_to_flax(name: str) -> str:
+    """InstantMesh lrm_generator name (prefix stripped, fused attention
+    tensors already split) -> reference flax path."""
+    n = name
+    n = re.sub(r"^encoder\.model\.embeddings\.cls_token$",
+               "encoder_model.cls_token", n)
+    n = re.sub(r"^encoder\.model\.embeddings\.position_embeddings$",
+               "encoder_model.pos_embed", n)
+    n = re.sub(r"^encoder\.model\.embeddings\.patch_embeddings\."
+               r"projection\.", "encoder_model.patch_proj.", n)
+    m = re.match(r"encoder\.model\.encoder\.layer\.(\d+)\.(.*)", n)
+    if m:
+        r = m.group(2)
+        r = re.sub(r"^attention\.attention\.", "", r)
+        r = re.sub(r"^attention\.output\.dense\.", "attn_out.", r)
+        r = re.sub(r"^intermediate\.dense\.", "mlp_in.", r)
+        r = re.sub(r"^output\.dense\.", "mlp_out.", r)
+        r = re.sub(r"^layernorm_before\.", "ln_before.", r)
+        r = re.sub(r"^layernorm_after\.", "ln_after.", r)
+        r = re.sub(r"^adaLN_modulation\.1\.", "adaln.", r)
+        n = f"encoder_model.layer_{m.group(1)}.{r}"
+    n = re.sub(r"^encoder\.model\.layernorm\.", "encoder_model.ln.", n)
+    n = re.sub(r"^encoder\.model\.pooler\.dense\.",
+               "encoder_model.pooler.", n)
+    n = re.sub(r"^encoder\.camera_embedder\.0\.",
+               "camera_embedder.linear_1.", n)
+    n = re.sub(r"^encoder\.camera_embedder\.2\.",
+               "camera_embedder.linear_2.", n)
+    m = re.match(r"transformer\.layers\.(\d+)\.(.*)", n)
+    if m:
+        r = m.group(2)
+        r = re.sub(r"^cross_attn\.out_proj\.", "cross_out.", r)
+        r = re.sub(r"^self_attn\.out_proj\.", "self_out.", r)
+        r = re.sub(r"^mlp\.0\.", "mlp_in.", r)
+        r = re.sub(r"^mlp\.2\.", "mlp_out.", r)
+        n = f"transformer.layers_{m.group(1)}.{r}"
+    n = re.sub(r"^synthesizer\.decoder\.(net_\w+)\.(\d+)\.",
+               r"synthesizer.\1_\2.", n)
+    n = n.replace(".", "/")
+    if n.endswith("/weight"):
+        leaf = ("scale" if re.search(
+            r"(^|/)(ln\w*|norm\d|norm)/weight$", n) else "kernel")
+        n = n[: -len("weight")] + leaf
+    return "params/" + n
+
+
+def lrm_name_to_flax(name: str) -> Tuple[str, ...]:
+    """Port TriplaneLRM name -> the reference flax path(s) it takes: the
+    fused nn.MultiheadAttention tensors (self-attention's in_proj weight
+    and bias, the cross-attention's in_proj bias) take the q, k and v
+    leaves, concatenated in that order."""
+    m = re.match(r"(.*)\.self_attn\.in_proj_(weight|bias)$", name)
+    if m:
+        return tuple(instantmesh_name_to_flax(
+            f"{m.group(1)}.self_{p}.{m.group(2)}") for p in "qkv")
+    m = re.match(r"(.*)\.cross_attn\.in_proj_bias$", name)
+    if m:
+        return tuple(instantmesh_name_to_flax(
+            f"{m.group(1)}.cross_{p}.bias") for p in "qkv")
+    m = re.match(r"(.*)\.cross_attn\.([qkv])_proj_weight$", name)
+    if m:
+        return (instantmesh_name_to_flax(
+            f"{m.group(1)}.cross_{m.group(2)}.weight"),)
+    return (instantmesh_name_to_flax(name),)
+
+
 def adapter_name_to_flax(name: str) -> str:
     """Port T2IAdapter name -> reference flax path (the same module paths;
     the adapter has no norms)."""
@@ -177,9 +265,14 @@ def adapter_name_to_flax(name: str) -> str:
     return "params/" + re.sub(r"/weight$", "/kernel", n)
 
 
-def flax_path(kind: str, name: str, num_levels: int = 0) -> str:
+def flax_path(kind: str, name: str, num_levels: int = 0):
     """The reference flax path of a port parameter of a model ``kind``
-    (unet, controlnet, vae, adapter, clip_l, clip_g)."""
+    (unet, controlnet, vae, adapter, clip_l, clip_g, clip_text,
+    clip_vision), or the tuple of paths it takes (lrm)."""
+    if kind == "lrm":
+        return lrm_name_to_flax(name)
+    if kind == "clip_vision":
+        return clip_vision_name_to_flax(name)
     if kind == "unet":
         return sdxl_unet_name_to_flax(name, num_levels)
     if kind == "controlnet":
@@ -188,7 +281,7 @@ def flax_path(kind: str, name: str, num_levels: int = 0) -> str:
         return vae_name_to_flax(name, num_levels)
     if kind == "adapter":
         return adapter_name_to_flax(name)
-    if kind in ("clip_l", "clip_g"):
+    if kind in ("clip_l", "clip_g", "clip_text"):
         return clip_name_to_flax(name)
     raise ValueError(f"unknown model kind {kind!r}")
 
@@ -208,7 +301,10 @@ def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
 
 def flax_layout(name: str, leaf: np.ndarray) -> np.ndarray:
     """A reference leaf in the port's layout: conv kernels HWIO -> OIHW,
-    dense kernels (in, out) -> (out, in); others as they are."""
+    the triplane deconvolution's HWIO -> ConvTranspose2d's (in, out, kh,
+    kw), dense kernels (in, out) -> (out, in); others as they are."""
+    if name.endswith("/deconv/kernel"):
+        return leaf.transpose(2, 3, 0, 1)
     if name.endswith("/kernel"):
         return leaf.T if leaf.ndim == 2 else leaf.transpose(3, 2, 0, 1)
     return leaf
@@ -224,10 +320,13 @@ def from_flax(kind: str, flax_params, module: nn.Module
     levels = _levels(module)
     out = {}
     for name, p in module.state_dict().items():
-        path = flax_path(kind, name, levels)
-        if path not in flat:
-            raise KeyError(f"[{kind}] {name} -> {path}: no such leaf")
-        a = flax_layout(path, flat.pop(path))
+        paths = flax_path(kind, name, levels)
+        paths = (paths,) if isinstance(paths, str) else paths
+        for path in paths:
+            if path not in flat:
+                raise KeyError(f"[{kind}] {name} -> {path}: no such leaf")
+        a = np.concatenate([flax_layout(path, flat.pop(path))
+                            for path in paths])
         if a.shape != tuple(p.shape):
             raise ValueError(f"[{kind}] {name}: shape {a.shape} vs "
                              f"{tuple(p.shape)}")
@@ -306,3 +405,40 @@ def load_clip_towers(weights_dir: str, model_l: nn.Module,
             sd = load_safetensors_dir(p)
             sd.pop("text_model.embeddings.position_ids", None)
             mod.load_state_dict(sd, strict=True)
+
+
+def load_instantmesh(weights_dir: str, backend) -> None:
+    """Load the InstantMesh LRM and the zero123plus towers of an
+    ``InstantMeshBackend`` where their directories exist, strictly:
+    ``<weights_dir>/instantmesh`` (lrm_generator keys, the prefix
+    stripped), ``zero123plus_unet``, ``zero123plus_vae``,
+    ``zero123plus_text_encoder`` and ``zero123plus_vision_encoder``; and
+    the ``ramping_coefficients`` of the first of
+    ``zero123plus_config.json``, ``model_index.json`` and
+    ``config.json`` that has them."""
+    for sub, mod in (("instantmesh", backend.lrm),
+                     ("zero123plus_unet", backend.unet),
+                     ("zero123plus_vae", backend.vae),
+                     ("zero123plus_text_encoder", backend.clip_text),
+                     ("zero123plus_vision_encoder", backend.clip_vision)):
+        p = os.path.join(weights_dir, sub)
+        if not os.path.isdir(p):
+            continue
+        sd = load_safetensors_dir(p)
+        if sub == "instantmesh":
+            sd = {k[len("lrm_generator."):] if k.startswith(
+                "lrm_generator.") else k: v for k, v in sd.items()}
+        sd.pop("text_model.embeddings.position_ids", None)
+        sd.pop("vision_model.embeddings.position_ids", None)
+        mod.load_state_dict(sd, strict=True)
+    for fn in ("zero123plus_config.json", "model_index.json", "config.json"):
+        fp = os.path.join(weights_dir, fn)
+        if os.path.exists(fp):
+            with open(fp) as f:
+                ramp = json.load(f).get("ramping_coefficients")
+            if ramp is not None:
+                # fp32, as the reference loads them, whatever the weights'
+                # dtype
+                backend.ramping = torch.as_tensor(
+                    np.asarray(ramp, np.float32), device=backend.device)
+                return

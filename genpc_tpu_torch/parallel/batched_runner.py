@@ -23,8 +23,10 @@ fast path).  Kernels K1 (Chamfer NN), K2 (FPS), K3 (EMD bid), K4/K5
 fixed resampling, the undo chain of transforms) is numpy, as in the
 reference.
 
-Not ported: device meshes (``cfg.mesh_shape``) and mesh-producing
-backends raise ``NotImplementedError``.
+A mesh-producing image-to-3D backend's completion (InstantMesh) is
+sampled on its surface, ``glb_sample_points`` points (io/glb), before
+registration.  Not ported: device meshes (``cfg.mesh_shape``) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from genpc_tpu_torch.geometry.normalize import normalize_points
+from genpc_tpu_torch.io.glb import sample_mesh_surface
 from genpc_tpu_torch.io.ply import load_xyz
 from genpc_tpu_torch.metrics.metric import uhd
 from genpc_tpu_torch.ops.chamfer import _nn, chamfer_nn, nearest_neighbor
@@ -253,10 +256,11 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
         src = np.asarray(art.color_xyz, np.float32)
         src_rgb = (np.asarray(art.color_rgb, np.float32)
                    if art.color_rgb is not None else np.full_like(src, 0.5))
-        if art.complete_xyz is None:
-            raise NotImplementedError(
-                "mesh-producing image-to-3D backends are not ported "
-                "(ROADMAP: neural backends, io/glb and meshes)")
+        if art.complete_xyz is None and art.complete_mesh is not None:
+            # a mesh-producing backend: sample the surface, as the
+            # per-object path does (reference: reg_xyz.py:125 glb2point)
+            art.complete_xyz, art.complete_rgb = sample_mesh_surface(
+                art.complete_mesh, glb_n)
         tgt, tgt_rgb = resample_fixed(art.complete_xyz, glb_n,
                                       art.complete_rgb)
         tgt = tgt.astype(np.float32)

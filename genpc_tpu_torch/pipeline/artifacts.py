@@ -7,19 +7,20 @@ Stages exchange one ``ObjectArtifacts`` record of host (numpy) arrays.
 ``point_uv.npy``, ``viewpoint.npy``, ``img_sam.png``,
 ``color_point.ply``, ``<flag>_<model>.ply``, ``<flag>_fused.ply``) under
 the same names, so a workspace written by either package loads in the
-other, and can reload a record to resume a stage.  PNGs need Pillow,
-imported only when one is read or written.  Meshes (``.glb``) need
-io/glb, which is not ported: a mesh to save or load raises.
+other, and can reload a record to resume a stage; a mesh completion is
+``<flag>_<model>.glb`` (io/glb).  PNGs need Pillow, imported only when
+one is read or written.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 
+from genpc_tpu_torch.io.glb import Mesh, load_glb, save_glb
 from genpc_tpu_torch.io.ply import load_ply, save_ply
 
 
@@ -39,7 +40,7 @@ class ObjectArtifacts:
     image_nobg: Optional[np.ndarray] = None     # [H,W,4] RGBA
     color_xyz: Optional[np.ndarray] = None      # colored partial cloud
     color_rgb: Optional[np.ndarray] = None
-    complete_mesh: Optional[Any] = None         # image-to-3D mesh output
+    complete_mesh: Optional[Mesh] = None        # image-to-3D output
     complete_xyz: Optional[np.ndarray] = None   # or a raw complete cloud
     complete_rgb: Optional[np.ndarray] = None
     complete_aligned: bool = False   # backend declared input-frame output
@@ -74,12 +75,6 @@ def _save_png(path: str, img: np.ndarray) -> None:
 def _load_png(path: str) -> np.ndarray:
     from PIL import Image
     return np.asarray(Image.open(path)).astype(np.float32) / 255.0
-
-
-def _no_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} a mesh needs io/glb, which is not ported (ROADMAP: neural "
-        f"backends, io/glb and meshes)")
 
 
 class Workspace:
@@ -133,8 +128,10 @@ class Workspace:
             save_ply(os.path.join(d, "color_point.ply"),
                      art.color_xyz, art.color_rgb)
         if art.complete_mesh is not None:
-            raise _no_mesh("saving")
-        if art.complete_xyz is not None:
+            save_glb(os.path.join(
+                d, f"{art.flag}_{self.generative_model}.glb"),
+                art.complete_mesh)
+        elif art.complete_xyz is not None:
             save_ply(os.path.join(
                 d, f"{art.flag}_{self.generative_model}.ply"),
                 art.complete_xyz, art.complete_rgb)
@@ -146,9 +143,9 @@ class Workspace:
         p = os.path.join(d, "color_point.ply")
         if os.path.exists(p):
             art.color_xyz, art.color_rgb = load_ply(p)
-        if os.path.exists(os.path.join(d, f"{flag}_{self.generative_model}"
-                                          f".glb")):
-            raise _no_mesh("loading")
+        p = os.path.join(d, f"{flag}_{self.generative_model}.glb")
+        if os.path.exists(p):
+            art.complete_mesh = load_glb(p)
         p = os.path.join(d, f"{flag}_{self.generative_model}.ply")
         if os.path.exists(p):
             art.complete_xyz, art.complete_rgb = load_ply(p)

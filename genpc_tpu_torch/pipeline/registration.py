@@ -18,8 +18,10 @@ Host preparation (voxel downsamples, ``resample_fixed`` with its fixed
 seed, the undo chain) is numpy in the reference's order, so both
 packages hand the same clouds to every device step.  The work runs on
 ``cfg.device``.  Weights: none; the pose optimiser starts from its four
-fixed rotations.  Mesh-producing backends (a ``complete_mesh``) need
-io/glb, which is not ported, and raise.
+fixed rotations.  A mesh-producing backend's completion (a
+``complete_mesh``) is sampled on its surface first (io/glb), and an
+InstantMesh completion is turned into the input's axes (x 90°, then y
+90°) after the partial's statistical outliers are removed.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from genpc_tpu_torch.geometry.normalize import normalize_points
 from genpc_tpu_torch.geometry.transforms import get_rotate_matrix
+from genpc_tpu_torch.io.glb import sample_mesh_surface
 from genpc_tpu_torch.ops.outliers import remove_statistical_outliers
 from genpc_tpu_torch.ops.voxel import voxel_down_sample
 from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts, Workspace
@@ -86,10 +89,6 @@ def reg(cfg, art: ObjectArtifacts, cd_inv_weight: float = 0.5,
         raise FileNotFoundError(
             f"{art.flag}: generated complete shape missing "
             f"(reference parity: reg_xyz.py:106-108)")
-    if art.complete_mesh is not None:
-        raise NotImplementedError(
-            "registering a mesh needs io/glb, which is not ported "
-            "(ROADMAP: neural backends, io/glb and meshes)")
     device = resolve_device(cfg.device)
 
     src = np.asarray(art.color_xyz, np.float32)
@@ -97,11 +96,14 @@ def reg(cfg, art: ObjectArtifacts, cd_inv_weight: float = 0.5,
                if art.color_rgb is not None else np.full_like(src, 0.5))
 
     n_samples = int(cfg.get("glb_sample_points", 163840))
-    tgt, tgt_rgb = resample_fixed(art.complete_xyz, n_samples,
-                                  art.complete_rgb)
-    tgt = tgt.astype(np.float32)
-    tgt_rgb = (tgt_rgb.astype(np.float32) if tgt_rgb is not None
-               else np.full_like(tgt, 0.5))
+    if art.complete_mesh is not None:
+        tgt, tgt_rgb = sample_mesh_surface(art.complete_mesh, n_samples)
+    else:
+        tgt, tgt_rgb = resample_fixed(art.complete_xyz, n_samples,
+                                      art.complete_rgb)
+        tgt = tgt.astype(np.float32)
+        tgt_rgb = (tgt_rgb.astype(np.float32) if tgt_rgb is not None
+                   else np.full_like(tgt, 0.5))
     fused_n = int(cfg.get("fused_points", 20000))
 
     # a completion its backend declares aligned skips registration when

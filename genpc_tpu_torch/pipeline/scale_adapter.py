@@ -3,17 +3,20 @@ image-to-3D (counterpart of genpc_tpu/pipeline/scale_adapter.py;
 reference: ScaleAdapter.py:15-97).
 
 ``scale_adapter`` runs one object (``main.run_pipeline``,
-``main_lidar.run_lidar``); ``scale_adapter_batch`` runs a batch, its
-symmetry planning for all objects in two nearest-neighbour launches.
-``color_point`` samples the generated image at its true resolution with
-one vectorised gather.  Only the synthetic image-to-3D backend is
-ported; a mesh-producing backend raises in ``get_image23d``.
+``main_lidar.run_lidar``); ``scale_adapter_batch`` runs a batch: with
+the synthetic backend its symmetry planning for all objects in two
+nearest-neighbour launches, with a mesh-producing backend that has
+``generate_meshes_batch`` (InstantMesh) its multiview denoise, decode
+and density grids over chunks of ``cfg.image23d_batch`` objects (0: the
+whole batch).  ``color_point`` samples the generated image at its true
+resolution with one vectorised gather.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from genpc_tpu_torch.io.glb import Mesh
 from genpc_tpu_torch.models.backends import get_image23d, get_rembg
 from genpc_tpu_torch.models.synthetic import SyntheticImage23D
 from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts, Workspace
@@ -47,9 +50,14 @@ class ScaleAdapter:
         return art
 
     def img2shape(self, art: ObjectArtifacts) -> ObjectArtifacts:
-        art.complete_xyz, art.complete_rgb = self.image23d(
-            art.flag, art.image_nobg, partial_xyz=art.color_xyz,
-            partial_rgb=art.color_rgb, viewpoint=art.viewpoint)
+        out = self.image23d(art.flag, art.image_nobg,
+                            partial_xyz=art.color_xyz,
+                            partial_rgb=art.color_rgb,
+                            viewpoint=art.viewpoint)
+        if isinstance(out, Mesh):
+            art.complete_mesh = out
+        else:
+            art.complete_xyz, art.complete_rgb = out
         art.complete_aligned = bool(getattr(self.image23d,
                                             "output_aligned", False))
         return art
@@ -64,23 +72,34 @@ class ScaleAdapter:
         return art
 
     def scale_adapter_batch(self, arts) -> None:
-        """Stage 2 for a batch: per-object matting/colouring (host) +
-        batched symmetry planning."""
-        if not isinstance(self.image23d, SyntheticImage23D):
-            raise NotImplementedError(
-                "only the synthetic image-to-3D backend is ported "
-                "(ROADMAP: neural backends)")
+        """Stage 2 for a batch: per-object matting/colouring (host), then
+        batched symmetry planning (synthetic), batched mesh generation
+        (``generate_meshes_batch``) or the per-object loop."""
         for art in arts:
             self.remove_bg(art)
             self.color_point(art)
-        plans = SyntheticImage23D.plan_symmetry_batched(
-            [a.color_xyz for a in arts], device=self.image23d.device)
-        for art, plan in zip(arts, plans):
-            art.complete_xyz, art.complete_rgb = \
-                self.image23d.complete_with_plan(
-                    art.flag, art.color_xyz, art.color_rgb,
-                    art.viewpoint, plan)
-            art.complete_aligned = True
+        if isinstance(self.image23d, SyntheticImage23D):
+            plans = SyntheticImage23D.plan_symmetry_batched(
+                [a.color_xyz for a in arts], device=self.image23d.device)
+            for art, plan in zip(arts, plans):
+                art.complete_xyz, art.complete_rgb = \
+                    self.image23d.complete_with_plan(
+                        art.flag, art.color_xyz, art.color_rgb,
+                        art.viewpoint, plan)
+                art.complete_aligned = True
+        elif hasattr(self.image23d, "generate_meshes_batch"):
+            nb = int(self.cfg.get("image23d_batch", 0)) or len(arts)
+            aligned = bool(getattr(self.image23d, "output_aligned", False))
+            for i in range(0, len(arts), nb):
+                chunk = arts[i:i + nb]
+                meshes = self.image23d.generate_meshes_batch(
+                    [a.flag for a in chunk], [a.image_nobg for a in chunk])
+                for art, m in zip(chunk, meshes):
+                    art.complete_mesh = m
+                    art.complete_aligned = aligned
+        else:
+            for art in arts:
+                self.img2shape(art)
         if self.cfg.save:
             for art in arts:
                 self.workspace.save_stage2(art)

@@ -218,3 +218,174 @@ def test_random_weights_repeat_across_processes():
     assert torch.all(sd["conv_out.bias"] == 0)
     w = sd["down_blocks.1.attentions.0.proj_in.weight"].float()
     assert abs(float(w.std()) - 0.02) < 0.002
+
+
+# ------------------------------------------------------------ InstantMesh
+
+def _from_flax_shapes(kind, module, shapes):
+    """``weights.from_flax`` at the level of shapes: every port parameter
+    takes its reference leaves (fused ones concatenated), with the
+    transposed shape, and no leaf is left over."""
+    flat = dict(shapes)
+    levels = tw._levels(module)
+    for name, p in module.state_dict().items():
+        paths = tw.flax_path(kind, name, levels)
+        paths = (paths,) if isinstance(paths, str) else paths
+        got = [tw.flax_layout(path, np.broadcast_to(
+            np.float32(0), flat.pop(path))).shape for path in paths]
+        whole = (sum(s[0] for s in got),) + got[0][1:]
+        assert whole == tuple(p.shape), (kind, name, whole, p.shape)
+    assert not flat, (kind, sorted(flat)[:4])
+
+
+def _ref_instantmesh_shapes(size):
+    """The reference backend's parameter tree at ``size`` from
+    jax.eval_shape (its _init_params with the random fill left out)."""
+    import genpc_tpu.config as jconfig
+    from genpc_tpu.models.lrm import InstantMeshBackend as JIM
+    j = JIM(jconfig.load_config(model_size=size))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jw, "random_bf16_params", lambda tree, seed=0: tree)
+        return j, fnn.meta.unbox(jax.eval_shape(j._init_params))
+
+
+@pytest.fixture(scope="module", params=["tiny", "full"])
+def instantmesh_pair(request):
+    from genpc_tpu_torch.models.lrm import InstantMeshBackend
+    j, tree = _ref_instantmesh_shapes(request.param)
+    t = InstantMeshBackend({"device": "cpu", "model_size": request.param})
+    return request.param, j, tree, t
+
+
+def test_instantmesh_names_match_the_specs(instantmesh_pair):
+    """The port's LRM, zero123plus UNet (SD2 layout at full size) and CLIP
+    vision tower carry the InstantMesh / diffusers / HF checkpoint names
+    and shapes (checkpoint_specs), on the meta device; mapped by the
+    port's name maps they take every leaf of the reference's trees."""
+    from dataclasses import replace
+    size, j, tree, t = instantmesh_pair
+    specs_of = {
+        "lrm": specs.spec_instantmesh(j.lrm_cfg),
+        "unet": specs.spec_unet(replace(j.unet_cfg, addition_embed_dim=0)),
+        "clip_vision": specs.spec_clip_vision(j.vis_cfg),
+        "clip_text": specs.spec_clip_text(j.txt_cfg)}
+    for kind, mod in t.models().items():
+        assert all(p.is_meta for p in mod.parameters())
+        names = {k: tuple(v.shape) for k, v in mod.state_dict().items()}
+        if kind in specs_of:
+            assert names == specs_of[kind], (size, kind)
+        _from_flax_shapes(kind, mod, jw.tree_shapes(tree[kind]))
+    assert tuple(tree["ramping"].shape) == (j.txt_cfg.max_len,)
+
+
+def test_instantmesh_parameter_count_matches_the_reference(instantmesh_pair):
+    """The port's parameters (meta device) and the 77 ramping
+    coefficients count what the reference's tree counts: at full size
+    2,301,454,692, bench_artifacts/instantmesh.json's count."""
+    size, _, tree, t = instantmesh_pair
+    ref = sum(int(np.prod(s)) for s in jw.tree_shapes(tree).values())
+    got = sum(p.numel() for m in t.models().values()
+              for p in m.parameters()) + t.txt_cfg.max_len
+    assert got == ref
+    if size == "full":
+        assert got == 2_301_454_692
+
+
+def test_load_instantmesh_matches_the_reference(tmp_path):
+    """One synthetic checkpoint of every InstantMesh directory (the LRM
+    with its lrm_generator. prefix, the zero123plus UNet, VAE, text and
+    vision towers with their position_ids buffers) and a ramping JSON,
+    loaded by the reference's load_instantmesh and by the port's: the
+    same tensors, the same ramping, and with every layer in fp32 the same
+    context, condition latents, UNet output and triplanes.  Both backends
+    carry an SD2-shaped tiny UNet (four levels): the reference's loader
+    maps the UNet's names for four levels only."""
+    import json
+    from dataclasses import replace
+    from safetensors.numpy import save_file
+    import genpc_tpu.config as jconfig
+    from genpc_tpu.models import lrm as jlrm
+    from genpc_tpu.models.unet import UNet2DCondition as JU
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models import lrm as tlrm
+    ucfg = dict(block_out_channels=(32, 32, 64, 64), layers_per_block=1,
+                transformer_depths=(1, 1, 1, 0), mid_depth=1,
+                context_dim=64, attention_head_dim=16)
+    j = jlrm.InstantMeshBackend(jconfig.load_config(model_size="tiny"))
+    j.unet_cfg = JUNetConfig(**ucfg)
+    j.unet = JU(j.unet_cfg)
+    t = tlrm.InstantMeshBackend(load_config(
+        device="cpu", model_size="tiny", weights_dir=str(tmp_path)))
+    t.unet_cfg = UNetConfig(**ucfg)
+    with torch.device("meta"):
+        t.unet = UNet2DCondition(t.unet_cfg)
+    ckpts = {
+        "instantmesh": {f"lrm_generator.{k}": v for k, v in
+                        jw.synthetic_checkpoint(specs.spec_instantmesh(
+                            j.lrm_cfg), seed=1).items()},
+        "zero123plus_unet": jw.synthetic_checkpoint(
+            specs.spec_unet(j.unet_cfg), seed=2),
+        "zero123plus_vae": jw.synthetic_checkpoint(
+            {k: tuple(v.shape) for k, v in t.vae.state_dict().items()},
+            seed=3),
+        "zero123plus_text_encoder": jw.synthetic_checkpoint(
+            specs.spec_clip_text(j.txt_cfg), seed=4),
+        "zero123plus_vision_encoder": jw.synthetic_checkpoint(
+            specs.spec_clip_vision(j.vis_cfg), seed=5)}
+    ckpts["zero123plus_text_encoder"][
+        "text_model.embeddings.position_ids"] = np.arange(77)[None]
+    ckpts["zero123plus_vision_encoder"][
+        "vision_model.embeddings.position_ids"] = np.arange(17)[None]
+    for sub, ck in ckpts.items():
+        os.makedirs(tmp_path / sub)
+        save_file(ck, str(tmp_path / sub / "model.safetensors"))
+    ramp = np.random.default_rng(6).random(77).astype(np.float32)
+    (tmp_path / "zero123plus_config.json").write_text(json.dumps(
+        {"ramping_coefficients": ramp.tolist()}))
+
+    k, z = jax.random.PRNGKey(0), jnp.zeros
+    params = {
+        "lrm": _zeros_tree(lambda: j.lrm.init(
+            k, z((1, 6, 32, 32, 3)), z((1, 6, 16)), z((8, 3)))),
+        "unet": _zeros_tree(lambda: j.unet.init(
+            k, z((1, 16, 16, 4)), z((1,)), z((1, 16, 64)))),
+        "vae": _zeros_tree(lambda: j.vae.init(k, z((1, 32, 32, 3)))),
+        "clip_text": _zeros_tree(lambda: j.clip_text.init(
+            k, z((1, 77), jnp.int32))),
+        "clip_vision": _zeros_tree(lambda: j.clip_vision.init(
+            k, z((1, 32, 32, 3)))),
+        "ramping": np.linspace(0.0, 1.0, 77, dtype=np.float32)}
+    params = jw.load_instantmesh(str(tmp_path), params)
+    t.init_params()
+    np.testing.assert_array_equal(np.asarray(params["ramping"]), ramp)
+    np.testing.assert_array_equal(t.ramping.numpy(), ramp)
+    lrm_sd = t.lrm.state_dict()
+    for k, v in ckpts["instantmesh"].items():
+        assert torch.equal(lrm_sd[k[len("lrm_generator."):]],
+                           torch.from_numpy(v)), k
+    r = np.random.default_rng(7)
+    imgs = r.random((2, 32, 32, 3)).astype(np.float32)
+    lat = r.normal(size=(2, 16, 16, 4)).astype(np.float32)
+    views = r.random((1, 6, 32, 32, 3)).astype(np.float32)
+    cams = jlrm.zero123plus_cameras()[None]
+    j._params = params
+    with precision("f32", *t.models().values()), torch.no_grad():
+        ctx = np.asarray(j._encode_context_batch(params, imgs))
+        cond = run_jit(lambda p, x: j.vae.apply(
+            p, x, method=type(j.vae).encode), params["vae"], imgs * 2 - 1)
+        eps = run_jit(lambda p, a, c: j.unet.apply(
+            p, a, jnp.full((2,), 613.0), c), params["unet"], lat,
+            ctx[:, 1])
+        planes = run_jit(lambda p, v, c: j.lrm.apply(
+            p, v, c, method=jlrm.TriplaneLRM.forward_planes),
+            params["lrm"], views, cams)
+        tctx = t.encode_context(imgs)
+        tcond = t.vae.encode(nchw(imgs * 2 - 1))
+        teps = t.unet(nchw(lat), torch.full((2,), 613.0), tctx[:, 1])
+        tplanes = t.lrm.forward_planes(
+            torch.from_numpy(views.transpose(0, 1, 4, 2, 3).copy()),
+            torch.from_numpy(cams))
+    close(tctx.flatten(0, 1), ctx.reshape(-1, 77, 64), TOL["f32"])
+    close(tcond, cond, TOL["f32"])
+    close(teps, eps, TOL["f32"])
+    close(tplanes, planes, TOL["f32"])

@@ -174,8 +174,23 @@ def test_spatial_transformer_matches(mode):
         got = t(nchw(x), torch.from_numpy(ctx))
     assert got.dtype == torch.float32 and ref.dtype == jnp.float32
     close(got, ref, TOL[mode])
-    with pytest.raises(NotImplementedError, match="ROADMAP: neural backends"):
-        t(nchw(x), torch.from_numpy(ctx), ref=object())
+    # with reference attention: a write pass records each block's
+    # post-norm tokens, a read pass appends them to attn1's keys/values
+    y = r.normal(size=(1, 3, 5, 64)).astype(np.float32)
+
+    def ref_rw(p, x, y, ctx):
+        bank = jl.RefBank("w")
+        j.apply(p, y, ctx, ref=bank)
+        return j.apply(p, x, ctx, ref=jl.RefBank("r", bank.tokens))
+
+    with precision(mode, t), torch.no_grad():
+        ref = run_jit(ref_rw, p, x, y, ctx)
+        bank = tl.RefBank("w")
+        t(nchw(y), torch.from_numpy(ctx), ref=bank)
+        got = t(nchw(x), torch.from_numpy(ctx),
+                ref=tl.RefBank("r", bank.tokens))
+    assert len(bank.tokens) == 2
+    close(got, ref, TOL[mode])
 
 
 # ----------------------------------------------------------------- models

@@ -270,8 +270,20 @@ def test_completion_loss_and_evaluate_pair_match():
     mt = tmetric.evaluate_pair(pred, gt, num_points=512, device="cpu")
     assert abs(mt["cd"] - mj["cd"]) <= 1e-5
     assert abs(mt["emd"] - mj["emd"]) <= 0.02 * mj["emd"]
-    with pytest.raises(NotImplementedError):
-        tmetric.evaluate_mesh(None, gt)
+    # a mesh sampled (bit-equal draws), fitted into the GT's box, scored
+    from genpc_tpu.io.glb import Mesh as JMesh
+    from genpc_tpu_torch.io.glb import Mesh as TMesh
+    v = r.random((40, 3)).astype(np.float32)
+    f = r.integers(0, 40, (60, 3)).astype(np.int32)
+    c = r.random((40, 3)).astype(np.float32)
+    for kw in ({}, {"normalize_by_gt_bbox": False, "with_emd": True}):
+        mj = jmetric.evaluate_mesh(JMesh(v, f, c), gt, num_points=512, **kw)
+        mt = tmetric.evaluate_mesh(TMesh(v, f, c), gt, num_points=512,
+                                   device="cpu", **kw)
+        assert set(mt) == set(mj)
+        assert abs(mt["cd"] - mj["cd"]) <= 1e-5
+        if "emd" in mj:
+            assert abs(mt["emd"] - mj["emd"]) <= 0.02 * mj["emd"]
 
 
 def test_uhd_matches():
