@@ -15,7 +15,6 @@ from typing import Any
 
 import numpy as np
 
-from genpc_tpu_torch.models.resample import resize_uint8
 from genpc_tpu_torch.models.synthetic import (
     SyntheticDepth2Image, SyntheticImage23D, SyntheticRembg)
 
@@ -29,12 +28,14 @@ _NEURAL = {
 def prep_rgb(image: np.ndarray, size: int) -> np.ndarray:
     """RGBA/RGB [H, W, *] in [0, 1] -> alpha-matted RGB [size, size, 3]:
     the matte every image-to-3D backend applies before encoding, resized
-    as Pillow's bilinear filter resizes it (bit for bit)."""
+    with Pillow's bilinear filter."""
+    from PIL import Image
     img = np.asarray(image, np.float32)
     if img.shape[-1] == 4:
         img = img[..., :3] * img[..., 3:4]
     u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-    return np.asarray(resize_uint8(u8, size, "bilinear"),
+    return np.asarray(Image.fromarray(u8).resize((size, size),
+                                                 Image.BILINEAR),
                       np.float32) / 255.0
 
 

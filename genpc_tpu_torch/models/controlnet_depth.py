@@ -32,8 +32,8 @@ from torch import nn
 
 from genpc_tpu_torch.categories import get_category
 from genpc_tpu_torch.models.adapter import T2IAdapter
+from genpc_tpu_torch.models.graphs import GraphedCall, graphed_call
 from genpc_tpu_torch.models.layers import BF16, F32, timestep_embedding
-from genpc_tpu_torch.models.resample import resize_lanczos_uint8
 from genpc_tpu_torch.models.schedulers import EulerAncestral, cfg_combine
 from genpc_tpu_torch.models.text_encoder import PromptEncoder
 from genpc_tpu_torch.models.unet import ControlNet, UNet2DCondition, UNetConfig
@@ -54,44 +54,72 @@ NEGATIVE_PROMPT = ("longbody, lowres, bad anatomy, bad hands, missing "
 WEIGHT_SEED = 0
 
 
+# ------------------------------------------------------------ Lanczos-3
+
+_PRECISION_BITS = 22     # Pillow's 8-bit resampling: 32 - 8 - 2
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos3(x: float) -> float:
+    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_coeffs(in_size: int, out_size: int):
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc: per output
+    pixel the first input index and ksize 22-bit fixed-point weights."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, ksize), np.int64)
+    k = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [_lanczos3((x + xmin - center + 0.5) / filterscale)
+             for x in range(xmax)]
+        ww = 0.0
+        for wi in w:
+            ww += wi
+        for x, wi in enumerate(w):
+            wi = wi / ww if ww != 0.0 else wi
+            k[xx, x] = int((-0.5 if wi < 0 else 0.5)
+                           + wi * (1 << _PRECISION_BITS))
+            idx[xx, x] = xmin + x
+    return idx, k
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    idx, k = _lanczos_coeffs(img.shape[axis], out_size)
+    a = np.moveaxis(img.astype(np.int64), axis, 0)            # [in, ...]
+    acc = (a[idx] * k.reshape(k.shape + (1,) * (a.ndim - 1))).sum(1)
+    acc = (acc + (1 << (_PRECISION_BITS - 1))) >> _PRECISION_BITS
+    return np.moveaxis(np.clip(acc, 0, 255).astype(np.uint8), 0, axis)
+
+
+def resize_lanczos_uint8(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 [H, W, C] -> uint8 [size, size, C] as Pillow's
+    ``Image.resize((size, size), Image.LANCZOS)`` computes it: the
+    horizontal pass first, each pass rounded and clipped to uint8."""
+    out = img
+    if img.shape[1] != size:
+        out = _resample_axis(out, size, axis=1)
+    if img.shape[0] != size:
+        out = _resample_axis(out, size, axis=0)
+    return out
+
+
 # ------------------------------------------------------------- backend
 
-class _GraphedEps:
-    """``ControlNetDepth.guided_eps`` captured once in a CUDA graph on
-    static input buffers.  A replay launches the whole step, ControlNet
-    and two UNet passes (about 7,000 kernels at SDXL width), without the
-    host's cost for each operator, which eager mode pays on every step:
-    the same kernels as the eager call, so the same bits."""
 
-    def __init__(self, backend, tensors, guidance, control_scale):
-        self.bufs = [a.clone() for a in tensors]
-
-        def run():
-            x, t, cond, ctx, ctx_neg, added, added_neg, *feats = self.bufs
-            return backend.guided_eps(x, t, cond, ctx, ctx_neg, added,
-                                      added_neg, guidance, control_scale,
-                                      feats if backend.adapter else None)
-
-        # warm up outside the capture, so that cuDNN and cuBLAS choose and
-        # allocate their workspaces first, on the capture stream (one for
-        # the process: a new side stream would keep a cuBLAS workspace of
-        # its own for as long as the process lives)
-        self.graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.graph(self.graph)
-        side = capture.capture_stream
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream().wait_stream(side)
-        with capture:
-            self.out = run()
-
-    def __call__(self, tensors):
-        for buf, a in zip(self.bufs, tensors):
-            buf.copy_(a)
-        self.graph.replay()
-        return self.out
-
+# ------------------------------------------------------------- backend
 
 class ControlNetDepth:
     """depth image -> RGB image; ``generate`` mirrors the reference."""
@@ -126,7 +154,7 @@ class ControlNetDepth:
         #: spans of generate: init, prompt, denoise, decode
         self.timer = StageTimer(self.device)
         self._ready = False
-        self._graphs: Dict[tuple, _GraphedEps] = {}
+        self._graphs: Dict[tuple, GraphedCall] = {}
 
     # ------------------------------------------------------------------
     def models(self) -> Dict[str, nn.Module]:
@@ -217,18 +245,14 @@ class ControlNetDepth:
         card through a CUDA graph captured at the first call with these
         shapes, guidance and scale (a returned tensor is overwritten by
         the next call)."""
-        if self.device.type != "cuda":
+        def step(x, t, cond, ctx, ctx_neg, added, added_neg, *feats):
             return self.guided_eps(x, t, cond, ctx, ctx_neg, added,
                                    added_neg, guidance, control_scale,
-                                   adapter_feats)
-        tensors = [x, t, cond, ctx, ctx_neg, added, added_neg,
-                   *(adapter_feats or ())]
-        key = (tuple(tuple(a.shape) for a in tensors), guidance,
-               control_scale)
-        if key not in self._graphs:
-            self._graphs[key] = _GraphedEps(self, tensors, guidance,
-                                            control_scale)
-        return self._graphs[key](tensors)
+                                   list(feats) if self.adapter else None)
+
+        return graphed_call(self._graphs, (guidance, control_scale), step,
+                            [x, t, cond, ctx, ctx_neg, added, added_neg,
+                             *(adapter_feats or ())], self.device)
 
     @torch.inference_mode()
     def denoise_latents(self, cond, ctx, ctx_neg, added, added_neg,

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genpc_tpu_torch.io.glb import Mesh
+from genpc_tpu_torch.models.graphs import GraphedCall, graphed_call
 from genpc_tpu_torch.models.layers import (
     BF16, F32, Conv2d, LayerNorm, Linear, RefBank, attention, gelu_tanh)
 from genpc_tpu_torch.models.schedulers import EulerAncestral, at, cfg_combine
@@ -425,37 +426,6 @@ def mesh_from_sdf(sdf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 # ------------------------------------------------------------- backend
 
-class _GraphedStep:
-    """``InstantMeshBackend.mv_step`` captured once in a CUDA graph on
-    static input buffers: a replay runs the write pass, the read pass and
-    the scheduler step with the same kernels as the eager call."""
-
-    def __init__(self, backend, tensors, sched):
-        self.sched = sched     # its tables are read by the graph
-        self.bufs = [a.clone() for a in tensors]
-
-        def run():
-            return backend.mv_step(*self.bufs, sched)
-
-        # warm up on the capture stream, so that cuDNN and cuBLAS choose
-        # and allocate their workspaces there first
-        self.graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.graph(self.graph)
-        side = capture.capture_stream
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream().wait_stream(side)
-        with capture:
-            self.out = run()
-
-    def __call__(self, tensors):
-        for buf, a in zip(self.bufs, tensors):
-            buf.copy_(a)
-        self.graph.replay()
-        return self.out
-
-
 class InstantMeshBackend:
     """image23d backend: a no-background image -> a coloured Mesh."""
 
@@ -492,7 +462,7 @@ class InstantMeshBackend:
         #: spans of generate_meshes_batch: init, context, denoise, decode,
         #: grid, marching, colors; and release
         self.timer = StageTimer(self.device)
-        self._graphs: Dict[tuple, _GraphedStep] = {}
+        self._graphs: Dict[tuple, GraphedCall] = {}
 
     # ------------------------------------------------------------------
     def models(self) -> Dict[str, nn.Module]:
@@ -593,12 +563,9 @@ class InstantMeshBackend:
         """``mv_step`` as the loop runs it: eagerly on the CPU; on the card
         through a CUDA graph captured at the first call with these shapes
         (a returned tensor is overwritten by the next call)."""
-        if self.device.type != "cuda":
-            return self.mv_step(*tensors, sched)
-        key = (tuple(tuple(a.shape) for a in tensors), sched.num_steps)
-        if key not in self._graphs:
-            self._graphs[key] = _GraphedStep(self, tensors, sched)
-        return self._graphs[key](tensors)
+        return graphed_call(self._graphs, (sched.num_steps,),
+                            lambda *a: self.mv_step(*a, sched), tensors,
+                            self.device)
 
     @torch.inference_mode()
     def denoise_latents(self, cond_pair, ctx, latents, cond_noises,

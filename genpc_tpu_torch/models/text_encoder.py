@@ -10,8 +10,8 @@ norm, projected.  Parameter names are HF CLIPTextModel(WithProjection)'s.
 zero123plus conditions on a CLIP ViT-H vision tower (``CLIPVisionModel``,
 HF CLIPVisionModelWithProjection's names): its projected class-token
 embedding is ramped into the SD2 text context.  ``clip_preprocess``
-resizes with Pillow's bicubic filter, bit for bit (models/resample.py),
-and normalises with CLIP's mean and std.
+resizes with Pillow's bicubic filter, as the reference does, and
+normalises with CLIP's mean and std.
 
 Tokenization: the CLIP byte-pair encoding when the checkpoint's
 vocab.json / merges.txt ship in ``<weights_dir>/tokenizer`` (it needs
@@ -36,7 +36,6 @@ from torch import nn
 
 from genpc_tpu_torch.models.layers import (
     F32, Conv2d, LayerNorm, Linear, attention, gelu_tanh)
-from genpc_tpu_torch.models.resample import resize_uint8
 
 
 @dataclass(frozen=True)
@@ -243,9 +242,12 @@ CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 def clip_preprocess(img: np.ndarray, size: int) -> np.ndarray:
     """[H, W, 3] in [0, 1] -> CLIP-normalised [1, size, size, 3] (NHWC,
-    numpy, as the reference returns it)."""
+    numpy, as the reference returns it), resized with Pillow's bicubic
+    filter."""
+    from PIL import Image
     u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-    x = np.asarray(resize_uint8(u8, size, "bicubic"), np.float32) / 255.0
+    x = np.asarray(Image.fromarray(u8).resize((size, size), Image.BICUBIC),
+                   np.float32) / 255.0
     return ((x - CLIP_IMAGE_MEAN) / CLIP_IMAGE_STD)[None]
 
 

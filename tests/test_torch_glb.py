@@ -2,8 +2,8 @@
 reference on the CPU: marching tetrahedra (genpc_tpu_torch/ops/
 marching.py), GLB IO and surface sampling (io/glb.py), a stage-2 mesh
 through ``Workspace``, and the image resizes of the image-to-3D path
-(``clip_preprocess``'s bicubic, ``prep_rgb``'s bilinear: Pillow's 8-bit
-resampling in numpy) and the zero123plus cameras."""
+(``clip_preprocess``'s bicubic, ``prep_rgb``'s bilinear) and the
+zero123plus cameras."""
 
 import numpy as np
 import pytest
@@ -18,7 +18,6 @@ from genpc_tpu.pipeline.artifacts import Workspace as JWorkspace
 from genpc_tpu_torch.io import glb as tglb
 from genpc_tpu_torch.models.backends import prep_rgb
 from genpc_tpu_torch.models.lrm import zero123plus_cameras
-from genpc_tpu_torch.models.resample import resize_uint8
 from genpc_tpu_torch.models.text_encoder import clip_preprocess
 from genpc_tpu_torch.ops.marching import marching_tetrahedra
 from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts, Workspace
@@ -129,7 +128,8 @@ def test_workspace_stage2_mesh_across_packages(tmp_path, writer):
 
 @pytest.mark.parametrize("shape,size", [((320, 320, 3), 224),
                                         ((32, 32, 3), 32),
-                                        ((100, 60, 3), 48)])
+                                        ((100, 60, 3), 48),
+                                        ((30, 70, 3), 64)])
 def test_clip_preprocess_bit_equal(shape, size):
     img = np.random.default_rng(size).random(shape).astype(np.float32)
     img[:5] = 1.5                       # clipped, as the reference clips
@@ -142,27 +142,14 @@ def test_clip_preprocess_bit_equal(shape, size):
 @pytest.mark.parametrize("shape,size", [((512, 512, 4), 320),
                                         ((64, 64, 4), 32),
                                         ((40, 40, 3), 320),
-                                        ((32, 32, 4), 32)])
+                                        ((32, 32, 4), 32),
+                                        ((150, 90, 4), 64)])
 def test_prep_rgb_bit_equal(shape, size):
     img = np.random.default_rng(shape[0]).random(shape).astype(np.float32)
     got = prep_rgb(img, size)
     ref = jprep_rgb(img, size)
     assert got.shape == (size, size, 3) and got.dtype == ref.dtype
     np.testing.assert_array_equal(got, ref)
-
-
-@pytest.mark.parametrize("filt,pil", [("bilinear", "BILINEAR"),
-                                      ("bicubic", "BICUBIC")])
-def test_resize_uint8_bit_equal_to_pillow(filt, pil):
-    """The filters the image-to-3D path adds (Lanczos-3: test_torch_models
-    .py::test_lanczos_resize_bit_equal_to_pillow)."""
-    from PIL import Image
-    for shape, size in (((512, 512, 3), 320), ((30, 70, 3), 64),
-                        ((64, 64, 3), 150)):
-        img = np.random.default_rng(size).integers(0, 256, shape, np.uint8)
-        ref = np.asarray(Image.fromarray(img).resize(
-            (size, size), getattr(Image, pil)))
-        np.testing.assert_array_equal(resize_uint8(img, size, filt), ref)
 
 
 @pytest.mark.parametrize("n", [6, 4])

@@ -263,7 +263,7 @@ def test_import_leaves_jax_out():
         "        'models.layers', 'models.schedulers', 'models.vae',\n"
         "        'models.text_encoder', 'models.unet', 'models.adapter',\n"
         "        'models.controlnet_depth', 'models.weights',\n"
-        "        'models.lrm', 'models.resample', 'models.backends',\n"
+        "        'models.lrm', 'models.graphs', 'models.backends',\n"
         "        'io.glb', 'ops.marching']\n"
         "missing = [n for n in need if 'genpc_tpu_torch.' + n\n"
         "           not in sys.modules]\n"
