@@ -14,8 +14,10 @@ Phases (any failure exits non-zero; nothing is caught):
      pass over 8 scans and of its UHD, and of the image-to-3D pass over
      IM_OBJECTS objects (K1_SHAPES), with its launch plan, distances
      bit-equal, argmins the first index, and the count of tied minima;
-     K2 at the batched metric's and fusion's shapes, at one object's, at
-     the image-to-3D pass's and at the Waymo pass's, and at the PED
+     K2 at the batched metric's and fusion's shapes, at a 13-object
+     pass's stage 1, metric prediction and pose subsample and the Qwen
+     pass's fusion, at one object's, at the image-to-3D pass's and at
+     the Waymo pass's, and at the PED
      shape (65,536 draws of 400 points, a tie at every late pick), the
      exact sequence, with its cluster size and how many clusters fit at
      once; K3 at 13 objects, at one and at IM_OBJECTS, bitwise equal to
@@ -91,6 +93,22 @@ Phases (any failure exits non-zero; nothing is caught):
      context, the step, the decode, the density grids and the colours at
      as many points as the pass's largest mesh has vertices); the memory
      back after release(); and the parameter count on the meta device.
+  7. Qwen-Image-Edit: DiTDepthEdit at the tiny preset on the host and on
+     the card with one state dict, generate_batch on the same draws
+     (images within GEN_IMAGE_TOL); then run_batched on the registration
+     path over the 13 objects with the full-width backend (the
+     Qwen2.5-VL towers, the 60-block MMDiT, the 16-channel VAE; bf16
+     weights; 8 steps, true CFG 4.0, 512²; all objects in one
+     generate_obj_batch chunk): a warm-up and a timed pass, the images
+     bitwise equal between them, the generation stage's spans (VL
+     weights, encode, MMDiT weights, denoise, decode, release), each
+     sampler step's time (CUDA events: the first, which captures its
+     graph, and the replays), the peak memory and the memory back after
+     release(), CD/EMD and the K1-K5 launches; the parameter counts and
+     one step's FLOPs on the meta device, over the replays' time against
+     the bf16 peak; then BASELINE config 4 once (Qwen-Image-Edit, then
+     InstantMesh, both at full width, over IM_OBJECTS objects), the
+     memory after each backend's release(), CD and EMD finite.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the batched registration pass, and by path); the last line
@@ -363,8 +381,10 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     shape, at the metric's ([13,163840] -> 16,384), at the fusion's (13
     clouds of the fusion's sizes, up to 65,536 partial + 163,840
     completion points, padded by repetition as ``fuse_clouds_batched``
-    pads them, -> 20,000), at one object's stage 1, metric (GT and
-    prediction), fusion and pose subsample, at the same over the
+    pads them, -> 20,000), at a 13-object pass's stage 1, metric
+    prediction and pose subsample and the Qwen pass's fusion, at one
+    object's stage 1, metric (GT and prediction), fusion and pose
+    subsample, at the same over the
     image-to-3D pass's IM_OBJECTS objects, at the Waymo stage 1 and
     fusion (8 scans, the fusion's clouds ragged) and at the PED shape
     (65,536 points drawn with replacement from 400, -> 10,000: after 400
@@ -409,6 +429,20 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
                    "metric_pred_im": (pred_sizes.tolist(), 16384),
                    "fusion_im": (im_fusion_sizes.tolist(), 20000),
                    "pose_im": ([2048] * IM_OBJECTS, 512)})
+    # the other launches of a 13-object pass: stage 1, the metric's
+    # prediction side (clouds of up to 19,765 points), the pose subsample,
+    # and the fusion of the Qwen pass (phase 7), whose completions leave
+    # clouds of up to 126,300 points (a smaller cluster than the fusion
+    # above); from their own draw
+    rq = np.random.default_rng(seed + 2)
+    q_pred = 19765 - rq.integers(0, 4000, 13)
+    q_pred[0] = 19765
+    q_fusion = 126300 - rq.integers(0, 32768, 13)
+    q_fusion[0] = 126300
+    shapes.update({"stage1": ([65536] * 13, 10000),
+                   "metric_pred": (q_pred.tolist(), 16384),
+                   "pose": ([2048] * 13, 512),
+                   "fusion_qwen": (q_fusion.tolist(), 20000)})
     out = {}
     for name, (sizes, k) in shapes.items():
         if sizes is None:
@@ -725,7 +759,9 @@ PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
                 "lidar_ped": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
                 "run_lidar": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
                 "controlnet": tuple(k[0] for k in KERNELS),
-                "instantmesh": tuple(k[0] for k in KERNELS)}
+                "instantmesh": tuple(k[0] for k in KERNELS),
+                "qwen": tuple(k[0] for k in KERNELS),
+                "config4": tuple(k[0] for k in KERNELS)}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -1367,19 +1403,20 @@ def generation_card_vs_host() -> None:
             fail(f"generation card vs host ({label}): the images disagree")
 
 
-class _StepEvents:
-    """CUDA events around each ControlNetDepth.denoise_latents call, for
-    the milliseconds of one denoise step (ControlNet + two UNet passes,
-    or adapter + two)."""
+class _LoopEvents:
+    """CUDA events around each call of a backend's denoise loop
+    (``cls.denoise_latents``, or another ``method``), for the
+    milliseconds of one step; ``steps_of(args)`` reads a call's step
+    count from its arguments."""
 
-    def __init__(self):
-        from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
-        self.cls, self.calls = ControlNetDepth, []
-        self.orig = ControlNetDepth.denoise_latents
+    def __init__(self, cls, steps_of, method: str = "denoise_latents"):
+        self.cls, self.steps_of, self.calls = cls, steps_of, []
+        self.method = method
+        self.orig = getattr(cls, method)
 
     def __enter__(self):
         import torch
-        orig, calls = self.orig, self.calls
+        orig, calls, steps_of = self.orig, self.calls, self.steps_of
 
         def timed(backend, *a, **k):
             start = torch.cuda.Event(enable_timing=True)
@@ -1387,19 +1424,29 @@ class _StepEvents:
             start.record()
             out = orig(backend, *a, **k)
             end.record()
-            calls.append((start, end, len(a[6])))
+            calls.append((start, end, steps_of(a)))
             return out
-        self.cls.denoise_latents = timed
+        setattr(self.cls, self.method, timed)
         return self
 
     def __exit__(self, *exc):
-        self.cls.denoise_latents = self.orig
+        setattr(self.cls, self.method, self.orig)
 
-    def ms_per_step(self) -> float:
+    def call_ms(self):
+        """The milliseconds of each call, in order."""
         import torch
         torch.cuda.synchronize()
-        return (sum(s.elapsed_time(e) for s, e, _ in self.calls)
-                / sum(n for _, _, n in self.calls))
+        return [s.elapsed_time(e) for s, e, _ in self.calls]
+
+    def ms_per_step(self) -> float:
+        return sum(self.call_ms()) / sum(n for _, _, n in self.calls)
+
+
+def _step_events():
+    """ControlNetDepth's loop: ControlNet + two UNet passes a step (or
+    adapter + two), one noise a step."""
+    from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
+    return _LoopEvents(ControlNetDepth, lambda a: len(a[6]))
 
 
 def drive_controlnet(root: str, flags, counters) -> dict:
@@ -1433,7 +1480,7 @@ def drive_controlnet(root: str, flags, counters) -> dict:
         batched_runner.run_batched(cfg, flags, root)
         log(f"controlnet: warm-up pass {time.time() - t0:.2f} s")
         timings = {}
-        with _StepEvents() as ev:
+        with _step_events() as ev:
             results, wall, launches = _counted(
                 "controlnet", counters,
                 lambda: batched_runner.run_batched(cfg, flags, root,
@@ -1488,7 +1535,7 @@ def drive_generate_standalone() -> None:
     gc.collect()
     base = torch.cuda.memory_allocated()
     b = ControlNetDepth(cfg)
-    with _StepEvents() as ev:
+    with _step_events() as ev:
         t0 = time.time()
         img = b.generate(depth, "chair", size=1024,
                          num_inference_steps=GEN_STEPS)
@@ -1530,7 +1577,7 @@ def drive_generate_standalone() -> None:
     if after - base > RELEASE_SLACK:
         fail("release() left the backend's memory allocated")
     a = ControlNetDepth(cfg, adapter=True)
-    with _StepEvents() as ev:
+    with _step_events() as ev:
         t0 = time.time()
         img = a.generate(depth, "chair", size=512,
                          num_inference_steps=GEN_STEPS)
@@ -1605,41 +1652,6 @@ def instantmesh_card_vs_host() -> None:
         fail("instantmesh card vs host: views or SDF grids disagree")
 
 
-class _MultiviewEvents:
-    """CUDA events around each InstantMeshBackend.denoise_latents call,
-    for the milliseconds of one multiview step (write pass, guided read
-    pass and scheduler step, over the call's objects)."""
-
-    def __init__(self):
-        from genpc_tpu_torch.models.lrm import InstantMeshBackend
-        self.cls, self.calls = InstantMeshBackend, []
-        self.orig = InstantMeshBackend.denoise_latents
-
-    def __enter__(self):
-        import torch
-        orig, calls = self.orig, self.calls
-
-        def timed(backend, *a, **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = orig(backend, *a, **k)
-            end.record()
-            calls.append((start, end, len(a[4])))
-            return out
-        self.cls.denoise_latents = timed
-        return self
-
-    def __exit__(self, *exc):
-        self.cls.denoise_latents = self.orig
-
-    def ms_per_step(self) -> float:
-        import torch
-        torch.cuda.synchronize()
-        return (sum(s.elapsed_time(e) for s, e, _ in self.calls)
-                / sum(n for _, _, n in self.calls))
-
-
 def drive_instantmesh(root: str, flags, counters) -> dict:
     """run_batched (registration path) with the full-width InstantMesh
     backend over ``flags``, all in one image23d_batch chunk: a warm-up
@@ -1653,6 +1665,9 @@ def drive_instantmesh(root: str, flags, counters) -> dict:
     from genpc_tpu_torch.models.lrm import InstantMeshBackend
     from genpc_tpu_torch.parallel import batched_runner
     from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
+    # one multiview step: a write and a guided read pass and the scheduler
+    # step, over the call's objects
+    events = _LoopEvents(InstantMeshBackend, lambda a: len(a[4]))
     cfg = load_config(device="cuda", image23d_batch=len(flags),
                       **INSTANTMESH)
     stage2 = ScaleAdapter.scale_adapter_batch
@@ -1692,7 +1707,7 @@ def drive_instantmesh(root: str, flags, counters) -> dict:
         batched_runner.run_batched(cfg, flags, root)
         log(f"instantmesh: warm-up pass {time.time() - t0:.2f} s")
         timings = {}
-        with _MultiviewEvents() as ev:
+        with events as ev:
             results, wall, launches = _counted(
                 "instantmesh", counters,
                 lambda: batched_runner.run_batched(cfg, flags, root,
@@ -1891,6 +1906,245 @@ def instantmesh_real_surface(root: str, run: dict) -> None:
         fail("instantmesh real surface: a fused cloud is missing")
 
 
+# ------------------------------------------------------------ phase 7 ---
+
+#: the Qwen pass: configs/redwood.yaml's sizes with the full-width
+#: Qwen-Image-Edit depth->image backend (the Qwen2.5-VL text and vision
+#: towers, the 60-block MMDiT, the 16-channel VAE; 8 rectified-flow steps
+#: with true CFG 4.0 at 512²), its weights in bf16 (quant_bits 0: int8
+#: and int4 are not ported), all 13 objects in one generate_obj_batch
+#: chunk, registration on
+QWEN = dict(REDWOOD, trust_aligned_completion=False, control_model="qwen",
+            model_size="full", quant_bits=0, tower_quant_bits=0,
+            generate_obj_batch=13)
+#: the reference's parameter counts (jax.eval_shape of its full presets;
+#: tests/test_torch_dit.py and test_torch_qwen_vl.py hold the port's to
+#: them)
+QWEN_PARAMS = {"dit": 20_430_401_088, "qwen_vl_text": 7_070_619_136,
+               "qwen_vl_vision": 676_550_144}
+#: BASELINE config 4: Qwen-Image-Edit, then InstantMesh, both at full
+#: width, over the image-to-3D pass's IM_OBJECTS objects
+CONFIG4 = dict(QWEN, generative_model="instantmesh",
+               image23d_batch=IM_OBJECTS)
+
+
+def qwen_card_vs_host() -> None:
+    """DiTDepthEdit at the tiny preset (tiny_qwen MMDiT, tiny Qwen2.5-VL
+    towers, tiny VAE) on the host and on the card with one state dict:
+    generate_batch over two objects at 64² (8 steps, true CFG 4.0, a CUDA
+    graph a step on the card) on the host's draws; the images within
+    GEN_IMAGE_TOL."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
+    host = DiTDepthEdit(load_config(device="cpu", model_size="tiny"))
+    host.init_params()
+    card = DiTDepthEdit(load_config(device="cuda", model_size="tiny"))
+    card.init_params({k: m.state_dict() for k, m in host.models().items()})
+    depths = [_depth_image(seed=s, res=32) for s in (0, 1)]
+    lat = host.draws(2, 64 // host.factor)
+    imgs = []
+    for b in (host, card):
+        b.draws = lambda n, hw, b=b: lat.to(b.device)
+        imgs.append(b.generate_batch(depths, ["01184", "05117"], size=64))
+    d = np.abs(imgs[0] - imgs[1])
+    log(f"qwen card vs host, tiny, 2 objects at 64², 8 steps: max |d| "
+        f"{float(d.max()):.3e}, mean |d| {float(d.mean()):.3e} (tolerance "
+        f"{GEN_IMAGE_TOL} on the max)")
+    if not (np.isfinite(imgs[1]).all() and d.max() <= GEN_IMAGE_TOL):
+        fail("qwen card vs host: the images disagree")
+
+
+def _qwen_events():
+    """Each sampler step of DiTDepthEdit (a conditional and an
+    unconditional MMDiT pass, cfg_combine and the Euler step, over the
+    call's objects): a loop's first step also warms up and captures its
+    CUDA graph, the others replay it."""
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
+    return _LoopEvents(DiTDepthEdit, lambda a: 1, method="_step")
+
+
+def drive_qwen(root: str, flags, counters) -> dict:
+    """run_batched (registration path) with the full-width Qwen-Image-Edit
+    generator, all objects in one generate_obj_batch chunk: a warm-up
+    pass, then the timed pass whose launches are counted.  Each pass
+    builds its backend from the same seed, so the images of the two
+    passes must be bitwise equal; the memory allocated after the
+    backend's release() must be back at its level before the stage."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.parallel import batched_runner
+    cfg = load_config(device="cuda", **QWEN)
+    gen = batched_runner._generate_images
+    release = batched_runner._release_backend
+    passes = []
+
+    def recording(cfg, dp, arts):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = dict(base=torch.cuda.memory_allocated(), t0=time.time())
+        passes.append(rec)
+        gen(cfg, dp, arts)
+        torch.cuda.synchronize()
+        rec.update(wall=time.time() - rec["t0"],
+                   peak=torch.cuda.max_memory_allocated(),
+                   images=[np.array(a.image) for a in arts])
+
+    def rec_release(owner, attr):
+        backend = getattr(owner, attr, None)
+        release(owner, attr)
+        if attr == "depth2image":
+            torch.cuda.synchronize()
+            passes[-1].update(after_release=torch.cuda.memory_allocated(),
+                              spans=backend.timer.as_dict())
+
+    with patched((batched_runner, "_generate_images", recording),
+                 (batched_runner, "_release_backend", rec_release)):
+        t0 = time.time()
+        batched_runner.run_batched(cfg, flags, root)
+        log(f"qwen: warm-up pass {time.time() - t0:.2f} s")
+        timings = {}
+        with _qwen_events() as ev:
+            results, wall, launches = _counted(
+                "qwen", counters,
+                lambda: batched_runner.run_batched(cfg, flags, root,
+                                                   timings=timings))
+    warm, timed = passes
+    b = len(flags)
+    first, *replays = ev.call_ms()
+    step_ms = statistics.median(replays)
+    log(f"qwen: timed pass {wall:.3f} s, {b / wall * 60:.3f} objects/min; "
+        f"stage walls (s): " + json.dumps(
+            {k: round(v, 4) for k, v in timings.items()}))
+    log(f"qwen: generation stage {timed['wall']:.3f} s for {b} images at "
+        f"{QWEN['generate_res']}² in generate_obj_batch "
+        f"{QWEN['generate_obj_batch']} chunks: spans (s, calls) "
+        + json.dumps({k: [round(t, 4), c]
+                      for k, (t, c) in timed["spans"].items()})
+        + f"; a sampler step over {b} objects (two MMDiT passes; CUDA "
+        f"events) {step_ms:.3f} ms as a CUDA graph replay (median of "
+        f"{len(replays)}), {first:.3f} ms for the first (eager warm-up, "
+        f"capture, replay); peak allocated "
+        f"{timed['peak'] / 2**30:.3f} GiB ("
+        f"{(timed['peak'] - timed['base']) / 2**30:.3f} GiB above the "
+        f"stage's start) of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.3f} "
+        f"GiB; memory allocated {timed['base'] / 2**20:.1f} MiB before the "
+        f"backend, {timed['after_release'] / 2**20:.1f} MiB after its "
+        f"release()")
+    cds = np.array([results[f]["cd"] for f in flags])
+    emds = np.array([results[f]["emd"] for f in flags])
+    for f in flags:
+        log(f"  {f}: CD x100 {results[f]['cd'] * 100:.4f} / EMD x100 "
+            f"{results[f]['emd'] * 100:.4f}")
+    log(f"qwen: mean CD x100 {cds.mean() * 100:.4f}, mean EMD x100 "
+        f"{emds.mean() * 100:.4f} over {b} objects")
+    if set(results) != set(flags) or not (np.isfinite(cds).all()
+                                          and np.isfinite(emds).all()):
+        fail("qwen: missing objects or non-finite CD/EMD")
+    size = QWEN["generate_res"]
+    if not all(im.shape == (size, size, 3) and np.isfinite(im).all()
+               for im in timed["images"]):
+        fail("qwen: a bad generated image")
+    same = all(np.array_equal(x, y)
+               for x, y in zip(warm["images"], timed["images"]))
+    log(f"qwen: warm-up and timed passes generate bitwise equal images: "
+        f"{same}")
+    if not same:
+        fail("qwen: the two passes generate different images")
+    if timed["after_release"] - timed["base"] > RELEASE_SLACK:
+        fail("qwen: release() left the backend's memory allocated")
+    return {"results": results, "launches": launches, "wall": wall,
+            "step_ms": step_ms}
+
+
+def qwen_step_flops(n: int, step_ms: float) -> None:
+    """The parameter counts and one sampler step's FLOPs over n objects,
+    both on the meta device (FlopCounterMode; the MMDiT at 64² latents,
+    1,024 image and 1,024 edit tokens beside the 512-token text budget),
+    the FLOPs over the timed pass's step time against the bf16 peak."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
+    from genpc_tpu_torch.models.schedulers import FlowMatchEuler
+    b = DiTDepthEdit(load_config(device="cuda", **QWEN))
+    counts = {k: sum(p.numel() for p in m.parameters())
+              for k, m in b.models().items()}
+    vl = counts["qwen_vl_text"] + counts["qwen_vl_vision"]
+    log("qwen parameters (meta device): " + json.dumps(counts)
+        + f"; the VL towers {vl:,}")
+    if any(counts[k] != v for k, v in QWEN_PARAMS.items()):
+        fail(f"qwen: parameter counts differ from the reference's "
+             f"{QWEN_PARAMS}")
+    hw = QWEN["generate_res"] // b.factor
+    meta = torch.device("meta")
+    lat = torch.zeros(n, b.dit_cfg.in_channels, hw, hw, device=meta)
+    txt = torch.zeros(n, b.txt_budget, b.dit_cfg.text_dim, device=meta)
+    mask = torch.ones(n, b.txt_budget, dtype=torch.bool, device=meta)
+    with FlopCounterMode(display=False) as fc:
+        b.sample_step(lat, torch.zeros(1, dtype=torch.long, device=meta),
+                      lat, txt, mask, txt, mask,
+                      FlowMatchEuler(b.steps, device=meta))
+    flops = fc.get_total_flops()
+    log(f"qwen sampler step FLOPs over {n} objects: {flops / 1e12:.4f} "
+        f"TFLOP (FlopCounterMode: two MMDiT passes over {n} x "
+        f"{2 * (hw // 2) ** 2 + b.txt_budget} tokens) in {step_ms:.3f} ms "
+        f"(the timed pass's graph replays, CUDA events) = "
+        f"{flops / step_ms / 1e9:.2f} "
+        f"TFLOP/s, {flops / step_ms / 1e-3 / BF16_PEAK:.4f} of the H100 "
+        f"SXM's {BF16_PEAK / 1e12:.0f} TFLOP/s bf16 dense peak (data sheet)")
+
+
+def drive_config4(root: str, flags, counters) -> dict:
+    """BASELINE config 4 once: run_batched (registration path) with the
+    full-width Qwen-Image-Edit generator, then the full-width InstantMesh
+    image-to-3D backend; each backend releases the card to the next (the
+    memory allocated is printed after each release()).  CD and EMD must
+    be finite."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.parallel import batched_runner
+    cfg = load_config(device="cuda", **CONFIG4)
+    release = batched_runner._release_backend
+    after = []
+
+    def rec_release(owner, attr):
+        release(owner, attr)
+        torch.cuda.synchronize()
+        after.append((attr, torch.cuda.memory_allocated()))
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    timings = {}
+    with patched((batched_runner, "_release_backend", rec_release)):
+        results, wall, launches = _counted(
+            "config4", counters,
+            lambda: batched_runner.run_batched(cfg, flags, root,
+                                               timings=timings))
+    b = len(flags)
+    log(f"config4 (Qwen-Image-Edit + InstantMesh): {wall:.3f} s for {b} "
+        f"objects, {b / wall * 60:.3f} objects/min; stage walls (s): "
+        + json.dumps({k: round(v, 4) for k, v in timings.items()})
+        + f"; memory allocated {base / 2**20:.1f} MiB before the pass, "
+        + ", ".join(f"{m / 2**20:.1f} MiB after {a}.release()"
+                    for a, m in after))
+    for f in flags:
+        log(f"  {f}: CD x100 {results[f]['cd'] * 100:.4f} / EMD x100 "
+            f"{results[f]['emd'] * 100:.4f}")
+    cds = np.array([results[f]["cd"] for f in flags])
+    emds = np.array([results[f]["emd"] for f in flags])
+    if set(results) != set(flags) or not (np.isfinite(cds).all()
+                                          and np.isfinite(emds).all()):
+        fail("config4: missing objects or non-finite CD/EMD")
+    if any(m - base > RELEASE_SLACK for _, m in after):
+        fail("config4: a release() left its backend's memory allocated")
+    return {"results": results, "launches": launches, "wall": wall}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "genpc_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1972,6 +2226,11 @@ def main() -> int:
         # image23d_batch a run of them can use
         instantmesh_step_flops((IM_OBJECTS, len(flags)),
                                runs["instantmesh"]["max_verts"])
+        # 7. Qwen-Image-Edit, alone and ahead of InstantMesh
+        qwen_card_vs_host()
+        runs["qwen"] = drive_qwen(root, flags, counters)
+        qwen_step_flops(QWEN["generate_obj_batch"], runs["qwen"]["step_ms"])
+        runs["config4"] = drive_config4(root, flags[:IM_OBJECTS], counters)
         if "--profile" in sys.argv[1:]:
             profile_pass(root, flags)
     if not runs["registration"]["repeat"]:

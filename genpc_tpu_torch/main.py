@@ -127,7 +127,11 @@ def main(argv=None):
     ap.add_argument("--model-size", default=None,
                     help="generative preset scale (tiny/base/full)")
     ap.add_argument("--quant-bits", type=int, default=None,
-                    help="weight-only DiT quantization: 0, 8 or 4")
+                    help="weight-only quantization of the DiT backend "
+                         "(--control-model qwen): 0 (bf16); 8 and 4 are "
+                         "not ported and raise")
+    ap.add_argument("--tower-quant-bits", type=int, default=None,
+                    help="the same for its Qwen2.5-VL prompt towers")
     ap.add_argument("--aligned", action="store_true",
                     help="trust_aligned_completion: skip registration for "
                          "completions already in the input frame")
@@ -162,8 +166,12 @@ def main(argv=None):
         cfg.generative_model = args.generative_model
     if args.model_size:
         cfg.model_size = args.model_size
-    if args.quant_bits is not None:
-        cfg.quant_bits = args.quant_bits
+    for key in ("quant_bits", "tower_quant_bits"):
+        if getattr(args, key) is not None:
+            if cfg.control_model not in ("qwen", "flux"):
+                ap.error(f"--{key.replace('_', '-')} applies to the DiT "
+                         f"depth->image backends (--control-model qwen)")
+            cfg[key] = getattr(args, key)
     if args.aligned:
         cfg.trust_aligned_completion = True
     if args.mesh:

@@ -120,7 +120,33 @@ class LayerNorm(nn.Module):
                             self.bias.to(F32), NORM_EPS)
 
 
-NORMS = (GroupNorm, LayerNorm)
+class RMSNorm(nn.Module):
+    """RMS norm with a learned scale, in fp32: the result is fp32
+    (``keep_dtype=False``: T5's and Qwen2.5-VL's norm) or cast back to the
+    input's dtype (``keep_dtype=True``: the MMDiT's q/k and text norms)."""
+
+    def __init__(self, dim: int, eps: float = NORM_EPS,
+                 keep_dtype: bool = False):
+        super().__init__()
+        self.eps, self.keep_dtype = eps, keep_dtype
+        self.weight = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x):
+        xf = x.to(F32)
+        out = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps) \
+            * self.weight.to(F32)
+        return out.to(x.dtype) if self.keep_dtype else out
+
+
+NORMS = (GroupNorm, LayerNorm, RMSNorm)
+
+
+def box(**children: nn.Module) -> nn.Module:
+    """A container that only names its children (a checkpoint's path)."""
+    m = nn.Module()
+    for k, v in children.items():
+        m.add_module(k, v)
+    return m
 
 
 def gelu_tanh(x):
@@ -128,17 +154,24 @@ def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+def sdpa_heads(q, k, v, mask=None, causal: bool = False):
+    """[B, T, H, dh] q and [B, S, H, dh] k, v -> [B, T, H * dh];
+    ``mask`` broadcasts to [B, H, T, S] (True: attend)."""
+    b, t, h, dh = q.shape
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal)
+    return out.transpose(1, 2).reshape(b, t, h * dh)
+
+
 def attention(q, k, v, heads: int, causal: bool = False):
     """[B, T, heads*dh] q and [B, S, heads*dh] k, v -> [B, T, heads*dh]."""
-    b, t, inner = q.shape
-    dh = inner // heads
+    b, _, inner = q.shape
 
     def split(a):
-        return a.reshape(b, a.shape[1], heads, dh).transpose(1, 2)
+        return a.reshape(b, a.shape[1], heads, inner // heads)
 
-    out = F.scaled_dot_product_attention(split(q), split(k), split(v),
-                                         is_causal=causal)
-    return out.transpose(1, 2).reshape(b, t, inner)
+    return sdpa_heads(split(q), split(k), split(v), causal=causal)
 
 
 class TimestepEmbed(nn.Module):

@@ -50,7 +50,8 @@ from torch import nn
 from genpc_tpu_torch.io.glb import Mesh
 from genpc_tpu_torch.models.graphs import GraphedCall, graphed_call
 from genpc_tpu_torch.models.layers import (
-    BF16, F32, Conv2d, LayerNorm, Linear, RefBank, attention, gelu_tanh)
+    BF16, F32, Conv2d, LayerNorm, Linear, RefBank, attention, box,
+    gelu_tanh)
 from genpc_tpu_torch.models.schedulers import EulerAncestral, at, cfg_combine
 from genpc_tpu_torch.models.text_encoder import (
     CLIPTextConfig, CLIPTextModel, CLIPVisionConfig, CLIPVisionModel,
@@ -104,14 +105,6 @@ class LRMConfig:
         return cls()
 
 
-def _box(**children: nn.Module) -> nn.Module:
-    """A container that only names its children (a checkpoint's path)."""
-    m = nn.Module()
-    for k, v in children.items():
-        m.add_module(k, v)
-    return m
-
-
 # ------------------------------------------------------------ DINO ViT
 
 class DinoLayer(nn.Module):
@@ -121,12 +114,12 @@ class DinoLayer(nn.Module):
         super().__init__()
         d = cfg.vit_dim
         self.heads = cfg.vit_heads
-        self.attention = _box(
-            attention=_box(query=Linear(d, d), key=Linear(d, d),
-                           value=Linear(d, d)),
-            output=_box(dense=Linear(d, d)))
-        self.intermediate = _box(dense=Linear(d, 4 * d))
-        self.output = _box(dense=Linear(4 * d, d))
+        self.attention = box(
+            attention=box(query=Linear(d, d), key=Linear(d, d),
+                          value=Linear(d, d)),
+            output=box(dense=Linear(d, d)))
+        self.intermediate = box(dense=Linear(d, 4 * d))
+        self.output = box(dense=Linear(4 * d, d))
         self.layernorm_before = LayerNorm(d)
         self.layernorm_after = LayerNorm(d)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(),
@@ -151,7 +144,7 @@ class _DinoEmbeddings(nn.Module):
         t = (cfg.img_size // cfg.patch) ** 2
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
         self.position_embeddings = nn.Parameter(torch.empty(1, 1 + t, d))
-        self.patch_embeddings = _box(projection=Conv2d(
+        self.patch_embeddings = box(projection=Conv2d(
             3, d, k=cfg.patch, stride=cfg.patch, padding=0))
 
     def forward(self, imgs):
@@ -169,11 +162,11 @@ class DinoViT(nn.Module):
     def __init__(self, cfg: LRMConfig):
         super().__init__()
         self.embeddings = _DinoEmbeddings(cfg)
-        self.encoder = _box(layer=nn.ModuleList(
+        self.encoder = box(layer=nn.ModuleList(
             [DinoLayer(cfg) for _ in range(cfg.vit_layers)]))
         self.layernorm = LayerNorm(cfg.vit_dim)
-        self.pooler = _box(dense=Linear(cfg.vit_dim, cfg.vit_dim,
-                                        compute=F32))
+        self.pooler = box(dense=Linear(cfg.vit_dim, cfg.vit_dim,
+                                       compute=F32))
 
     def forward(self, imgs, adaln_input):
         x = self.embeddings(imgs)
@@ -268,7 +261,7 @@ class TriplaneTransformer(nn.Module):
                                      for _ in range(cfg.dec_layers)])
         self.norm = LayerNorm(dd)
         # ConvTranspose2d layout (in, out, kh, kw)
-        self.deconv = _box()
+        self.deconv = box()
         self.deconv.weight = nn.Parameter(
             torch.empty(dd, cfg.triplane_dim, 2, 2))
         self.deconv.bias = nn.Parameter(torch.empty(cfg.triplane_dim))
@@ -343,7 +336,7 @@ class SynthesizerDecoder(nn.Module):
                 mods += [Linear(d, cfg.mlp_dim, compute=F32), nn.ReLU()]
                 d = cfg.mlp_dim
             heads[name] = nn.Sequential(*mods, Linear(d, out, compute=F32))
-        self.decoder = _box(**heads)
+        self.decoder = box(**heads)
 
     def head(self, name: str, feats):
         return getattr(self.decoder, name)(feats)
@@ -361,8 +354,8 @@ class TriplaneLRM(nn.Module):
     def __init__(self, cfg: LRMConfig):
         super().__init__()
         self.cfg = cfg
-        self.encoder = _box(model=DinoViT(cfg),
-                            camera_embedder=CameraEmbedder(cfg))
+        self.encoder = box(model=DinoViT(cfg),
+                           camera_embedder=CameraEmbedder(cfg))
         self.transformer = TriplaneTransformer(cfg)
         self.synthesizer = SynthesizerDecoder(cfg)
 

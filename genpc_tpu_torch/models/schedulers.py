@@ -140,12 +140,13 @@ class FlowMatchEuler:
     def scale_model_input(self, sample, i: int):
         return sample
 
-    def t_next(self, i: int):
+    def t_next(self, i):
         """Flow time after step i (0.0 at the end of sampling)."""
-        return self.sigmas[i + 1]
+        return at(self.sigmas, i + 1)
 
-    def step(self, velocity, i: int, sample, noise=None):
-        dt = self.sigmas[i + 1] - self.sigmas[i]
+    def step(self, velocity, i, sample, noise=None):
+        """One Euler step; i an int or a [1] index tensor."""
+        dt = at(self.sigmas, i + 1) - at(self.sigmas, i)
         return sample + velocity * dt
 
 

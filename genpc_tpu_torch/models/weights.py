@@ -1,6 +1,6 @@
 """Parameters of the generative models: materialisation, seeded random
 weights, the reference's trees carried across, and checkpoint loading
-(counterpart of the SDXL and InstantMesh parts of
+(counterpart of the SDXL, InstantMesh, MMDiT and Qwen2.5-VL parts of
 genpc_tpu/models/weights.py).
 
   * ``materialize`` gives a module built on the meta device its storage
@@ -17,9 +17,10 @@ genpc_tpu/models/weights.py).
     reference's name maps and the layout transposes (conv HWIO -> OIHW,
     dense (in, out) -> (out, in)).
   * ``load_sdxl_controlnet`` / ``load_clip_towers`` / ``load_instantmesh``
-    read diffusers / HF / InstantMesh safetensors checkpoints in the
-    reference's directory layout with a reader of the port's own (no
-    ``safetensors`` package needed) and load them by name.
+    / ``load_dit`` / ``load_qwen_vl`` read diffusers / HF / InstantMesh
+    safetensors checkpoints in the reference's directory layout with a
+    reader of the port's own (no ``safetensors`` package needed) and load
+    them by name.
 """
 
 from __future__ import annotations
@@ -265,10 +266,135 @@ def adapter_name_to_flax(name: str) -> str:
     return "params/" + re.sub(r"/weight$", "/kernel", n)
 
 
-def flax_path(kind: str, name: str, num_levels: int = 0):
+def qwen_name_to_flax(name: str) -> str:
+    """diffusers QwenImageTransformer2DModel name -> reference flax path."""
+    n = name
+    n = re.sub(r"^time_text_embed\.timestep_embedder\.", "time_embed.", n)
+    n = re.sub(r"^norm_out\.linear\.", "norm_out_mod.", n)
+    m = re.match(r"transformer_blocks\.(\d+)\.(.*)", n)
+    if m:
+        r = m.group(2)
+        r = re.sub(r"^img_mod\.1\.", "img_mod.", r)
+        r = re.sub(r"^txt_mod\.1\.", "txt_mod.", r)
+        r = re.sub(r"^img_mlp\.net\.0\.proj\.", "img_mlp_in.", r)
+        r = re.sub(r"^img_mlp\.net\.2\.", "img_mlp_out.", r)
+        r = re.sub(r"^txt_mlp\.net\.0\.proj\.", "txt_mlp_in.", r)
+        r = re.sub(r"^txt_mlp\.net\.2\.", "txt_mlp_out.", r)
+        n = f"double_{m.group(1)}.{_dit_attn(r)}"
+    return _dit_leaf(n)
+
+
+def flux_name_to_flax(name: str) -> str:
+    """diffusers FluxTransformer2DModel name -> reference flax path."""
+    n = name
+    n = re.sub(r"^x_embedder\.", "img_in.", n)
+    n = re.sub(r"^context_embedder\.", "txt_in.", n)
+    n = re.sub(r"^time_text_embed\.timestep_embedder\.", "time_embed.", n)
+    n = re.sub(r"^time_text_embed\.guidance_embedder\.",
+               "guidance_embed.", n)
+    n = re.sub(r"^time_text_embed\.text_embedder\.", "pooled_embed.", n)
+    n = re.sub(r"^norm_out\.linear\.", "norm_out_mod.", n)
+    m = re.match(r"transformer_blocks\.(\d+)\.(.*)", n)
+    if m:
+        r = m.group(2)
+        r = re.sub(r"^norm1\.linear\.", "img_mod.", r)
+        r = re.sub(r"^norm1_context\.linear\.", "txt_mod.", r)
+        r = re.sub(r"^ff\.net\.0\.proj\.", "img_mlp_in.", r)
+        r = re.sub(r"^ff\.net\.2\.", "img_mlp_out.", r)
+        r = re.sub(r"^ff_context\.net\.0\.proj\.", "txt_mlp_in.", r)
+        r = re.sub(r"^ff_context\.net\.2\.", "txt_mlp_out.", r)
+        n = f"double_{m.group(1)}.{_dit_attn(r)}"
+    m = re.match(r"single_transformer_blocks\.(\d+)\.(.*)", n)
+    if m:
+        r = m.group(2)
+        r = re.sub(r"^norm\.linear\.", "mod.", r)
+        r = re.sub(r"^attn\.", "", r)
+        n = f"single_{m.group(1)}.{r}"
+    return _dit_leaf(n)
+
+
+def _dit_attn(r: str) -> str:
+    """A double block's attention names, shared by both families."""
+    r = re.sub(r"^attn\.to_q\.", "attn_img_q.", r)
+    r = re.sub(r"^attn\.to_k\.", "attn_img_k.", r)
+    r = re.sub(r"^attn\.to_v\.", "attn_img_v.", r)
+    r = re.sub(r"^attn\.add_q_proj\.", "attn_txt_q.", r)
+    r = re.sub(r"^attn\.add_k_proj\.", "attn_txt_k.", r)
+    r = re.sub(r"^attn\.add_v_proj\.", "attn_txt_v.", r)
+    r = re.sub(r"^attn\.to_out\.0\.", "attn_img_out.", r)
+    r = re.sub(r"^attn\.to_add_out\.", "attn_txt_out.", r)
+    return re.sub(r"^attn\.(norm_q|norm_k|norm_added_q|norm_added_k)\.",
+                  r"attn_\1.", r)
+
+
+def _dit_leaf(n: str) -> str:
+    n = n.replace(".", "/")
+    if n.endswith("/weight"):
+        leaf = ("scale" if re.search(
+            r"(^|/)(attn_norm_\w+|norm_q|norm_k|txt_norm)/weight$", n)
+            else "kernel")
+        n = n[: -len("weight")] + leaf
+    return "params/" + n
+
+
+def qwen_vl_name_to_flax(name: str) -> str:
+    """Qwen2_5_VLForConditionalGeneration name (transformers>=4.52:
+    ``model.language_model.*`` / ``model.visual.*``) -> reference flax
+    path."""
+    m = re.match(r"model\.language_model\.(.*)", name)
+    if m:
+        r = m.group(1)
+        r = re.sub(r"^layers\.(\d+)\.", r"layers_\1.", r)
+        r = re.sub(r"\.self_attn\.([qkvo])_proj\.", r".\1.", r)
+        r = re.sub(r"\.input_layernorm\.", ".attn_norm.", r)
+        r = re.sub(r"\.post_attention_layernorm\.", ".mlp_norm.", r)
+        r = re.sub(r"\.mlp\.(gate|up|down)_proj\.", r".\1.", r)
+        r = r.replace(".", "/")
+        if r.endswith("/weight"):
+            if r == "embed_tokens/weight":
+                leaf = "embedding"
+            elif re.search(r"(^|/)(attn_norm|mlp_norm|norm)/weight$", r):
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+            r = r[: -len("weight")] + leaf
+        return "params/" + r
+    m = re.match(r"model\.visual\.(.*)", name)
+    if not m:
+        raise ValueError(f"not a Qwen2.5-VL tower name: {name!r}")
+    r = m.group(1)
+    r = re.sub(r"^patch_embed\.proj\.", "patch_proj.", r)
+    r = re.sub(r"^blocks\.(\d+)\.", r"blocks_\1.", r)
+    r = re.sub(r"\.attn\.", ".", r)
+    r = re.sub(r"\.mlp\.(gate|up|down)_proj\.", r".\1.", r)
+    r = re.sub(r"^merger\.ln_q\.", "ln_q.", r)
+    r = re.sub(r"^merger\.mlp\.0\.", "merger_0.", r)
+    r = re.sub(r"^merger\.mlp\.2\.", "merger_2.", r)
+    r = r.replace(".", "/")
+    if r.endswith("/weight"):
+        leaf = ("scale" if re.search(r"(^|/)(norm1|norm2|ln_q)/weight$", r)
+                else "kernel")
+        r = r[: -len("weight")] + leaf
+    return "params/" + r
+
+
+#: the HF checkpoint prefixes of the Qwen2.5-VL towers (the newer layout
+#: first; ``model.`` alone is the older text prefix)
+QWEN_VL_PREFIXES = {"qwen_vl_text": ("model.language_model.", "model."),
+                    "qwen_vl_vision": ("model.visual.", "visual.")}
+
+
+def flax_path(kind: str, name: str, num_levels: int = 0,
+              family: str = "qwen"):
     """The reference flax path of a port parameter of a model ``kind``
     (unet, controlnet, vae, adapter, clip_l, clip_g, clip_text,
-    clip_vision), or the tuple of paths it takes (lrm)."""
+    clip_vision, dit of the ``family`` qwen or flux, qwen_vl_text,
+    qwen_vl_vision), or the tuple of paths it takes (lrm)."""
+    if kind == "dit":
+        return (qwen_name_to_flax if family == "qwen"
+                else flux_name_to_flax)(name)
+    if kind in QWEN_VL_PREFIXES:
+        return qwen_vl_name_to_flax(QWEN_VL_PREFIXES[kind][0] + name)
     if kind == "lrm":
         return lrm_name_to_flax(name)
     if kind == "clip_vision":
@@ -318,15 +444,18 @@ def from_flax(kind: str, flax_params, module: nn.Module
     leaf no port parameter takes."""
     flat = {"/".join(p): np.asarray(v) for p, v in _flatten(flax_params)}
     levels = _levels(module)
+    family = getattr(getattr(module, "cfg", None), "family", "qwen")
     out = {}
     for name, p in module.state_dict().items():
-        paths = flax_path(kind, name, levels)
+        paths = flax_path(kind, name, levels, family)
         paths = (paths,) if isinstance(paths, str) else paths
         for path in paths:
             if path not in flat:
                 raise KeyError(f"[{kind}] {name} -> {path}: no such leaf")
         a = np.concatenate([flax_layout(path, flat.pop(path))
                             for path in paths])
+        if name == "patch_embed.proj.weight":   # Conv3D, flattened there
+            a = a.reshape(tuple(p.shape))
         if a.shape != tuple(p.shape):
             raise ValueError(f"[{kind}] {name}: shape {a.shape} vs "
                              f"{tuple(p.shape)}")
@@ -442,3 +571,38 @@ def load_instantmesh(weights_dir: str, backend) -> None:
                 backend.ramping = torch.as_tensor(
                     np.asarray(ramp, np.float32), device=backend.device)
                 return
+
+
+def load_dit(weights_dir: str, backend, variant: str) -> None:
+    """Load ``<weights_dir>/<variant>`` (the diffusers
+    QwenImageTransformer2DModel or FluxTransformer2DModel safetensors)
+    into ``backend.model`` where it exists, strictly."""
+    p = os.path.join(weights_dir, variant)
+    if os.path.isdir(p):
+        backend.model.load_state_dict(load_safetensors_dir(p), strict=True)
+
+
+def load_qwen_vl(weights_dir: str, text: nn.Module, vision: nn.Module
+                 ) -> None:
+    """Load ``<weights_dir>/text_encoder`` (Qwen2_5_VLForConditionalGeneration
+    safetensors, either prefix layout) into the two towers where it
+    exists, strictly; ``lm_head`` (the encoder never computes logits) and
+    rotary buffers are dropped."""
+    p = os.path.join(weights_dir, "text_encoder")
+    if not os.path.isdir(p):
+        return
+    parts = {kind: {} for kind in QWEN_VL_PREFIXES}
+    for k, v in load_safetensors_dir(p).items():
+        if k == "lm_head.weight" or "rotary_emb" in k:
+            continue
+        # the vision prefixes first: "model." also starts "model.visual."
+        for kind in ("qwen_vl_vision", "qwen_vl_text"):
+            pre = next((x for x in QWEN_VL_PREFIXES[kind]
+                        if k.startswith(x)), None)
+            if pre is not None:
+                parts[kind][k[len(pre):]] = v
+                break
+        else:
+            raise ValueError(f"[qwen_vl] unexpected tensor {k!r}")
+    text.load_state_dict(parts["qwen_vl_text"], strict=True)
+    vision.load_state_dict(parts["qwen_vl_vision"], strict=True)

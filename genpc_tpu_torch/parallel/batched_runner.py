@@ -394,12 +394,24 @@ def _release_backend(owner, attr: str) -> None:
 
 
 def _generate_images(cfg, dp, arts) -> None:
-    """Depth->image for a list of objects (per object, like the
-    reference's loop for backends without a batched path)."""
+    """Depth->image for a list of objects: a backend with a batched path
+    (the DiT's ``generate_batch``) denoises the objects together, in
+    chunks of ``cfg.generate_obj_batch`` (0: all in one); the others run
+    the reference's per-object loop."""
     from genpc_tpu_torch.categories import get_category
     size = int(cfg.generate_res)
+    gen = dp.depth2image
+    if hasattr(gen, "generate_batch") and len(arts) > 1:
+        ob = int(cfg.get("generate_obj_batch", 0) or 0) or len(arts)
+        for lo in range(0, len(arts), ob):
+            grp = arts[lo:lo + ob]
+            imgs = gen.generate_batch([a.depth for a in grp],
+                                      [a.flag for a in grp], size=size)
+            for art, img in zip(grp, imgs):
+                art.image = np.asarray(img)
+        return
     for art in arts:
-        art.image = np.asarray(dp.depth2image.generate(
+        art.image = np.asarray(gen.generate(
             art.depth, get_category(art.flag), size=size))
 
 

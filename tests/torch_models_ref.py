@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from genpc_tpu.models import dit as jdit
 from genpc_tpu_torch.models import weights as tw
 
 #: max |port - reference| <= TOL * max |reference|, by precision mode.
@@ -74,8 +75,9 @@ def nchw(a) -> torch.Tensor:
 @contextlib.contextmanager
 def precision(mode, *modules):
     """'bf16': the packages' own compute types; 'f32': every bf16 layer of
-    the reference (``jnp.bfloat16`` is read when a layer is traced) and of
-    the given port modules computes in fp32."""
+    the reference (``jnp.bfloat16`` is read when a layer is traced; the
+    MMDiT's ``_tp_dense`` binds it as a default argument, so it is
+    wrapped too) and of the given port modules computes in fp32."""
     if mode == "bf16":
         yield
         return
@@ -83,9 +85,15 @@ def precision(mode, *modules):
              if hasattr(m, "compute")]
     for m, _ in saved:
         m.compute = torch.float32
+    dense = jdit._tp_dense
+
+    def dense_f32(features, name, shard="out", quant=0, dtype=None):
+        return dense(features, name, shard, quant, jnp.float32)
+
     try:
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jnp, "bfloat16", jnp.float32)
+            mp.setattr(jdit, "_tp_dense", dense_f32)
             yield
     finally:
         for m, c in saved:
