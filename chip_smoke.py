@@ -11,19 +11,20 @@ Phases (any failure exits non-zero; nothing is caught):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it: K1 at every launch class of the
      batched registration pass, of the per-object pass, of the Waymo
-     pass over 8 scans and of its UHD, and of the image-to-3D pass over
-     IM_OBJECTS objects (K1_SHAPES), with its launch plan, distances
+     pass over LIDAR_SCANS scans and of its UHD, of the image-to-3D pass
+     over IM_OBJECTS objects and of config 4 over CONFIG4_OBJECTS
+     (K1_SHAPES), with its launch plan, distances
      bit-equal, argmins the first index, and the count of tied minima;
      K2 at the batched metric's and fusion's shapes, at a 13-object
      pass's stage 1, metric prediction and pose subsample and the Qwen
-     pass's fusion, at one object's, at the image-to-3D pass's and at
-     the Waymo pass's, and at the PED
-     shape (65,536 draws of 400 points, a tie at every late pick), the
+     and FLUX passes' fusions, at one object's, at the image-to-3D
+     pass's and config 4's, at the Waymo pass's, and at the PED shape
+     (65,536 draws of 400 points, a tie at every late pick), the
      exact sequence, with its cluster size and how many clusters fit at
      once; K3 at 13 objects, at one and at IM_OBJECTS, bitwise equal to
      bid_plain_direct and within the reference contract of bid_plain; K4
-     and K5 bit-equal at both pose resolutions for R = 52, 4, 32 and 4
-     IM_OBJECTS renders, on the table as _build_table returns it, on its
+     and K5 bit-equal at both pose resolutions for R = 52, 4, 4
+     LIDAR_SCANS and 4 IM_OBJECTS renders, on the table as _build_table returns it, on its
      contiguous copy and on a table with every entry present, timed on
      the contiguous one: parity, the kernel's, the plain version's and
      (where one exists) a library call's times (CUDA events, warm-up
@@ -107,8 +108,35 @@ Phases (any failure exits non-zero; nothing is caught):
      release(), CD/EMD and the K1-K5 launches; the parameter counts and
      one step's FLOPs on the meta device, over the replays' time against
      the bf16 peak; then BASELINE config 4 once (Qwen-Image-Edit, then
-     InstantMesh, both at full width, over IM_OBJECTS objects), the
+     InstantMesh, both at full width, over CONFIG4_OBJECTS objects), the
      memory after each backend's release(), CD and EMD finite.
+  8. FLUX: DiTDepthEdit("flux") at the tiny preset on the host and on the
+     card with one state dict at quant_bits 0, 8 and 4 (generate_batch on
+     the same draws, images within GEN_IMAGE_TOL), FluxInpainter.paint
+     (within GEN_IMAGE_TOL, the known pixels exact) and
+     T5PromptEncoder.encode (within T5_TOL); the parameter counts on the
+     meta device against the reference's; then run_batched on the
+     registration path over the 13 objects with the reference's
+     full-size FLUX deployment at its defaults (FLUX: the FLUX inpainter
+     paints stage 1's depths at res², 30 steps each, and is freed;
+     FLUX.1-Depth-dev generates the 13 images at 512² in one chunk, 30
+     steps, guidance 10.0; int4 MMDiT and int4 T5-XXL in both): a
+     warm-up and a timed pass, the painted depths and the images
+     bitwise equal between them, the spans of both backends, each
+     sampler step's time (CUDA events: the first, then the replays) and
+     each paint's, the weight bytes, the pass's peak memory and the
+     memory after each release(), CD/EMD and the K1-K5 launches; then
+     one sampler step over 13 objects of the FLUX MMDiT in bf16 and int8
+     and of the Qwen MMDiT in int4, each as a graph replay, with its
+     FLOPs over its time against the bf16 peak, its peak memory and its
+     weight bytes.
+
+Cut for the time limit (1,200 s, the kernels' build included), when
+phase 8 came: config 4 runs over CONFIG4_OBJECTS = 1 object (was 3), the
+Waymo passes over LIDAR_SCANS = 4 scans a category (was 8), and the
+image-to-3D pass over IM_OBJECTS = 2 objects (was 3), phase 3 checking
+the kernels at the launch classes these give.  No path was dropped and
+no kernel check weakened.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the batched registration pass, and by path); the last line
@@ -186,9 +214,19 @@ def fail(msg: str) -> None:
 #: objects of the image-to-3D pass (phase 6): a random-weight mesh has
 #: millions of faces, whose marching on the host takes tens of seconds an
 #: object a pass, so the pass runs over the first IM_OBJECTS of the 13
-#: objects (cut for the time limit; widths, steps and grid unchanged).
-#: Its launch classes at B = IM_OBJECTS are checked here.
-IM_OBJECTS = 3
+#: objects (cut for the time limit, from 3 to 2 when phase 8 came;
+#: widths, steps and grid unchanged).  Its launch classes at
+#: B = IM_OBJECTS are checked here.
+IM_OBJECTS = 2
+#: objects of BASELINE config 4's pass in phase 7 (Qwen-Image-Edit, then
+#: InstantMesh): one (cut from 3 for the time limit when phase 8 came;
+#: its marching of a shattered random-weight mesh takes ~24 s an object).
+#: Its launch classes are one object's (below: the per-object pass's,
+#: and "fine_c4")
+CONFIG4_OBJECTS = 1
+#: scans a category in the Waymo passes of phase 4 (bench_waymo.py takes
+#: 20: cut for the time limit, to 8 and then, when phase 8 came, to 4)
+LIDAR_SCANS = 4
 
 #: K1 launch classes of the registration pass: name, (B, N, M), and the
 #: number of y batches x shares through y_index (0: one y per x batch).
@@ -222,19 +260,20 @@ K1_SHAPES = [
     ("refine_1", (1, 2048, 2048), 0),
     ("pose1_512", (4, 512, 512), 1),
     ("pose1_2048", (4, 2048, 2048), 1),
-    # run_batched_lidar over 8 scans: the registration classes at B = 8
-    # (the sweeps, 8 x 250 fine candidates, 8 x 11 coarse ICP problems,
-    # the refine, 32 pose renders), each partial against its fused cloud
-    # (padded by repetition to the longest), and the held-out wedges
-    ("sweep_8", (2496, 4096, 4096), 8),
-    ("sweep_fine_8", (936, 4096, 4096), 8),
-    ("fine_8", (2000, 2048, 2048), 8),
-    ("icp_8", (88, 2048, 2048), 8),
-    ("refine_8", (8, 2048, 2048), 0),
-    ("pose8_512", (32, 512, 512), 8),
-    ("pose8_2048", (32, 2048, 2048), 8),
-    ("uhd", (8, 65536, 20000), 0),
-    ("holdout", (8, 1400, 20000), 0),
+    # run_batched_lidar over LIDAR_SCANS scans: the registration classes
+    # at B = LIDAR_SCANS (the sweeps, 250 fine candidates and 11 coarse ICP
+    # problems a scan, the refine, 4 pose renders a scan), each partial
+    # against its fused cloud (padded by repetition to the longest), and
+    # the held-out wedges
+    ("sweep_lidar", (312 * LIDAR_SCANS, 4096, 4096), LIDAR_SCANS),
+    ("sweep_fine_lidar", (117 * LIDAR_SCANS, 4096, 4096), LIDAR_SCANS),
+    ("fine_lidar", (250 * LIDAR_SCANS, 2048, 2048), LIDAR_SCANS),
+    ("icp_lidar", (11 * LIDAR_SCANS, 2048, 2048), LIDAR_SCANS),
+    ("refine_lidar", (LIDAR_SCANS, 2048, 2048), 0),
+    ("pose_lidar_512", (4 * LIDAR_SCANS, 512, 512), LIDAR_SCANS),
+    ("pose_lidar_2048", (4 * LIDAR_SCANS, 2048, 2048), LIDAR_SCANS),
+    ("uhd", (LIDAR_SCANS, 65536, 20000), 0),
+    ("holdout", (LIDAR_SCANS, 1400, 20000), 0),
     # run_lidar: one scan's UHD
     ("uhd_1", (1, 65536, 20000), 0),
     # the image-to-3D pass over IM_OBJECTS objects (a mesh gets no
@@ -247,6 +286,9 @@ K1_SHAPES = [
     ("refine_im", (IM_OBJECTS, 2048, 2048), 0),
     ("pose_im_512", (4 * IM_OBJECTS, 512, 512), IM_OBJECTS),
     ("pose_im_2048", (4 * IM_OBJECTS, 2048, 2048), IM_OBJECTS),
+    # config 4 over CONFIG4_OBJECTS: the batched fine grid (250 candidates
+    # an object; the other classes are the per-object pass's)
+    ("fine_c4", (250 * CONFIG4_OBJECTS, 2048, 2048), CONFIG4_OBJECTS),
 ]
 K3_SHAPE = (13, 16384, 16384)
 #: K3 for one object (the per-object metric) and for the image-to-3D pass
@@ -382,11 +424,13 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     clouds of the fusion's sizes, up to 65,536 partial + 163,840
     completion points, padded by repetition as ``fuse_clouds_batched``
     pads them, -> 20,000), at a 13-object pass's stage 1, metric
-    prediction and pose subsample and the Qwen pass's fusion, at one
+    prediction and pose subsample and the Qwen and FLUX passes' fusions,
+    at one
     object's stage 1, metric (GT and prediction), fusion and pose
     subsample, at the same over the
     image-to-3D pass's IM_OBJECTS objects, at the Waymo stage 1 and
-    fusion (8 scans, the fusion's clouds ragged) and at the PED shape
+    fusion (LIDAR_SCANS scans, the fusion's clouds ragged) and at the PED
+    shape
     (65,536 points drawn with replacement from 400, -> 10,000: after 400
     picks every minimum distance is 0, a tie at every pick).  Returns the
     metric shape's numbers and every shape's by name."""
@@ -404,14 +448,14 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     b, n, _ = fusion
     fusion_sizes = n - r.integers(0, 32768, b)
     fusion_sizes[0] = n
-    lidar_sizes = 108925 - r.integers(0, 20000, 8)
+    lidar_sizes = 108925 - r.integers(0, 20000, LIDAR_SCANS)
     lidar_sizes[0] = 108925
     shapes = {"metric": ([metric[1]] * metric[0], metric[2]),
               "fusion": (fusion_sizes.tolist(), fusion[2]),
               "stage1_1": ([65536], 10000), "metric_1": ([163840], 16384),
               "metric_pred_1": ([19728], 16384),
               "fusion_1": ([125719], 20000), "pose_1": ([2048], 512),
-              "stage1_lidar": ([65536] * 8, 10000),
+              "stage1_lidar": ([65536] * LIDAR_SCANS, 10000),
               "fusion_lidar": (lidar_sizes.tolist(), 20000),
               "ped": (None, 10000)}
     # the image-to-3D pass over IM_OBJECTS objects: stage 1, the metric
@@ -424,6 +468,9 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     pred_sizes[0] = 19514
     im_fusion_sizes = 218361 - ri.integers(0, 32768, IM_OBJECTS)
     im_fusion_sizes[0] = 218361
+    # config 4's fusion over one object: its partial with the 163,840
+    # points sampled from its mesh
+    shapes["fusion_c4"] = ([219388] * CONFIG4_OBJECTS, 20000)
     shapes.update({"stage1_im": ([65536] * IM_OBJECTS, 10000),
                    "metric_im": ([163840] * IM_OBJECTS, 16384),
                    "metric_pred_im": (pred_sizes.tolist(), 16384),
@@ -443,6 +490,12 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
                    "metric_pred": (q_pred.tolist(), 16384),
                    "pose": ([2048] * 13, 512),
                    "fusion_qwen": (q_fusion.tolist(), 20000)})
+    # the fusion of the FLUX pass (phase 8): clouds of up to 140,394
+    # points, from their own draw
+    rf = np.random.default_rng(seed + 3)
+    f_fusion = 140394 - rf.integers(0, 32768, 13)
+    f_fusion[0] = 140394
+    shapes["fusion_flux"] = (f_fusion.tolist(), 20000)
     out = {}
     for name, (sizes, k) in shapes.items():
         if sizes is None:
@@ -629,12 +682,13 @@ def k5_bound(slot_orig, kept, res, f=2, slots=6):
 
 def check_k4_k5(dev, shapes=((224, 2048, 13), (112, 512, 13),
                             (224, 2048, 1), (112, 512, 1),
-                            (224, 2048, 8), (112, 512, 8),
+                            (224, 2048, LIDAR_SCANS),
+                            (112, 512, LIDAR_SCANS),
                             (224, 2048, IM_OBJECTS), (112, 512, IM_OBJECTS)),
                 seed=4):
     """K4 (splat forward) and K5 (splat backward, per point) against their
     plain versions at the pose path's shapes (R = 52 for 13 objects, R = 4
-    for one, R = 32 for 8 Waymo scans, R = 4 IM_OBJECTS for the
+    for one, R = 4 LIDAR_SCANS for the Waymo scans, R = 4 IM_OBJECTS for the
     image-to-3D pass; S = 6, f = 2, gamma 1e-2):
     bit-equal on the table _build_table returns (a view with render
     stride size + 1), on its
@@ -761,7 +815,8 @@ PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
                 "controlnet": tuple(k[0] for k in KERNELS),
                 "instantmesh": tuple(k[0] for k in KERNELS),
                 "qwen": tuple(k[0] for k in KERNELS),
-                "config4": tuple(k[0] for k in KERNELS)}
+                "config4": tuple(k[0] for k in KERNELS),
+                "flux": tuple(k[0] for k in KERNELS)}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -947,9 +1002,7 @@ def small_input_check(tmp: str, seed: int) -> None:
 LIDAR = dict(REDWOOD, trust_aligned_completion=False, point_size=2,
              mask_pixel_rate=2, removal_radius=100, edge_point_size=1)
 LIDAR_PED = dict(LIDAR, point_size=3, removal_radius=800)
-#: scans a category in the Waymo passes (bench_waymo.py takes 20: cut
-#: for the time limit), and objects of the per-object Redwood pass
-LIDAR_SCANS = 8
+#: objects of the per-object Redwood pass
 PER_OBJECT_FLAGS = 3
 #: the per-object tiny config: TINY with registration, small pose inputs
 #: on both sides, and more fused points than the metric samples (the
@@ -1923,9 +1976,9 @@ QWEN = dict(REDWOOD, trust_aligned_completion=False, control_model="qwen",
 QWEN_PARAMS = {"dit": 20_430_401_088, "qwen_vl_text": 7_070_619_136,
                "qwen_vl_vision": 676_550_144}
 #: BASELINE config 4: Qwen-Image-Edit, then InstantMesh, both at full
-#: width, over the image-to-3D pass's IM_OBJECTS objects
+#: width, over CONFIG4_OBJECTS objects
 CONFIG4 = dict(QWEN, generative_model="instantmesh",
-               image23d_batch=IM_OBJECTS)
+               image23d_batch=CONFIG4_OBJECTS)
 
 
 def qwen_card_vs_host() -> None:
@@ -2145,6 +2198,351 @@ def drive_config4(root: str, flags, counters) -> dict:
     return {"results": results, "launches": launches, "wall": wall}
 
 
+# ------------------------------------------------------------ phase 8 ---
+
+#: the reference's full-size FLUX deployment (FLUX.1-Depth-dev for the
+#: images, the FLUX inpainter for stage 1's depths) at its quantisation
+#: defaults: quant_bits and tower_quant_bits unset, i.e. int4 MMDiT and
+#: int4 T5-XXL in both backends
+FLUX = dict(REDWOOD, trust_aligned_completion=False, control_model="flux",
+            inpainter="flux", model_size="full", generate_obj_batch=13)
+#: the reference's parameter counts (jax.eval_shape of its full presets,
+#: unquantised; tests/test_torch_flux.py and test_torch_t5.py hold the
+#: port's to them)
+FLUX_PARAMS = {"dit": 11_901_604_928, "t5": 4_762_310_656}
+#: card against host of T5PromptEncoder.encode at the tiny preset:
+#: tests/test_torch_t5.py's bf16 bound, of the largest |host| value
+T5_TOL = 3e-2
+
+
+def flux_card_vs_host() -> None:
+    """The FLUX backend at the tiny preset on the host and on the card with
+    one state dict: generate_batch over two objects at 64² (30 steps,
+    guidance 10.0, a CUDA graph a step on the card) on the host's draws at
+    quant_bits 0, 8 and 4 (T5 quantised alike), images within
+    GEN_IMAGE_TOL; FluxInpainter.paint on a depth image with a hole on the
+    host's draw, within GEN_IMAGE_TOL and the known pixels exact; and
+    T5PromptEncoder.encode within T5_TOL."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit, FluxInpainter
+    depths = [_depth_image(seed=s, res=32) for s in (0, 1)]
+    for bits in (0, 8, 4):
+        kw = dict(model_size="tiny", quant_bits=bits, tower_quant_bits=bits)
+        host = DiTDepthEdit(load_config(device="cpu", **kw), variant="flux")
+        host.init_params()
+        card = DiTDepthEdit(load_config(device="cuda", **kw),
+                            variant="flux")
+        card.init_params({k: m.state_dict()
+                          for k, m in host.models().items()})
+        lat = host.draws(2, 64 // host.factor)
+        imgs = []
+        for b in (host, card):
+            b.draws = lambda n, hw, b=b: lat.to(b.device)
+            imgs.append(b.generate_batch(depths, ["01184", "05117"],
+                                         size=64))
+        d = np.abs(imgs[0] - imgs[1])
+        log(f"flux card vs host, tiny, quant_bits {bits}, 2 objects at "
+            f"64², 30 steps: max |d| {float(d.max()):.3e}, mean |d| "
+            f"{float(d.mean()):.3e} (tolerance {GEN_IMAGE_TOL} on the max)")
+        if not (np.isfinite(imgs[1]).all() and d.max() <= GEN_IMAGE_TOL):
+            fail(f"flux card vs host (quant_bits {bits}): the images "
+                 f"disagree")
+        if bits == 0:
+            ctx_h, pooled_h = host.t5.encode(["complete the depth map. ",
+                                              "a chair"])
+            ctx_c, pooled_c = card.t5.encode(["complete the depth map. ",
+                                              "a chair"])
+            for name, h, c in (("context", ctx_h, ctx_c),
+                               ("pooled", pooled_h, pooled_c)):
+                gap = float((h - c.cpu()).abs().max())
+                scale = float(h.abs().max())
+                log(f"t5 card vs host, tiny, {name} {tuple(h.shape)}: max "
+                    f"|d| {gap:.3e} of max |host| {scale:.3e} (tolerance "
+                    f"{T5_TOL} of it)")
+                if not gap <= T5_TOL * scale:
+                    fail(f"t5 card vs host: the {name}s disagree")
+    host = FluxInpainter(load_config(device="cpu", model_size="tiny"))
+    host.backend.init_params()
+    card = FluxInpainter(load_config(device="cuda", model_size="tiny"))
+    card.backend.init_params({k: m.state_dict() for k, m
+                              in host.backend.models().items()})
+    raw = _depth_image(seed=2, res=64)
+    hole = np.zeros((3, 64, 64), np.float32)
+    hole[:, 16:40, 20:52] = 1.0
+    hole[:, raw[0] == 0] = 1.0
+    noise = host.paint_draws(64 // host.backend.factor)
+    outs = []
+    for inp in (host, card):
+        inp.paint_draws = lambda hw, inp=inp: noise.to(inp.device)
+        outs.append(inp.paint(raw, hole))
+    known = hole.max(axis=0) < 0.5
+    d = np.abs(outs[0] - outs[1])
+    exact = bool(np.array_equal(outs[0][:, known], outs[1][:, known]))
+    log(f"flux inpainter card vs host, tiny, 64², 30 steps: max |d| "
+        f"{float(d.max()):.3e} (tolerance {GEN_IMAGE_TOL}), known pixels "
+        f"exact: {exact}")
+    if not (np.isfinite(outs[1]).all() and d.max() <= GEN_IMAGE_TOL
+            and exact):
+        fail("flux inpainter card vs host: the images disagree")
+
+
+def _backend_bytes(be) -> dict:
+    from genpc_tpu_torch.models.quant import tree_bytes
+    return {k: tree_bytes(m) for k, m in be.models().items()}
+
+
+def drive_flux(root: str, flags, counters) -> dict:
+    """run_batched (registration path) with FLUX at its full-size
+    defaults: stage 1 paints each object's depth with the FLUX inpainter
+    (30 steps at res², a CUDA graph a step), the inpainter is freed, then
+    FLUX.1-Depth-dev generates every image at 512² in one
+    generate_obj_batch chunk (30 steps, guidance 10.0) and is freed.  A
+    warm-up pass, then the timed pass whose launches are counted; both
+    build their backends from the same seeds, so the painted depths and
+    the images of the two passes must be bitwise equal, and the memory
+    allocated after each release() must be back at its level before the
+    pass."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit, FluxInpainter
+    from genpc_tpu_torch.parallel import batched_runner
+    cfg = load_config(device="cuda", **FLUX)
+    stage1 = batched_runner.batched_stage1
+    gen = batched_runner._generate_images
+    release = batched_runner._release_backend
+    passes = []     # each pass's walls, memory, weight bytes, spans, outputs
+
+    def rec_stage1(cfg, arts, viewpoints, core=None, dp=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = dict(base=torch.cuda.memory_allocated(), after={}, weights={},
+                   spans={})
+        passes.append(rec)
+        t0 = time.time()
+        stage1(cfg, arts, viewpoints, core=core, dp=dp)
+        torch.cuda.synchronize()
+        rec["stage1_wall"] = time.time() - t0
+        rec["weights"]["inpainter"] = _backend_bytes(dp.inpainter.backend)
+        rec["depths"] = [np.array(a.depth) for a in arts]
+
+    def rec_gen(cfg, dp, arts):
+        rec = passes[-1]
+        t0 = time.time()
+        gen(cfg, dp, arts)
+        torch.cuda.synchronize()
+        rec["gen_wall"] = time.time() - t0
+        rec["weights"]["depth2image"] = _backend_bytes(dp.depth2image)
+        rec["images"] = [np.array(a.image) for a in arts]
+
+    def rec_release(owner, attr):
+        backend = getattr(owner, attr, None)
+        release(owner, attr)
+        if attr in ("inpainter", "depth2image"):
+            torch.cuda.synchronize()
+            rec = passes[-1]
+            rec["after"][attr] = torch.cuda.memory_allocated()
+            rec["spans"][attr] = backend.timer.as_dict()
+            rec["peak"] = torch.cuda.max_memory_allocated()
+
+    with patched((batched_runner, "batched_stage1", rec_stage1),
+                 (batched_runner, "_generate_images", rec_gen),
+                 (batched_runner, "_release_backend", rec_release)):
+        t0 = time.time()
+        batched_runner.run_batched(cfg, flags, root)
+        log(f"flux: warm-up pass {time.time() - t0:.2f} s")
+        timings = {}
+        with _LoopEvents(DiTDepthEdit, lambda a: 1, method="_step") as ev, \
+                _LoopEvents(FluxInpainter, lambda a: a[-1],
+                            method="inpaint_image") as ev_inp:
+            results, wall, launches = _counted(
+                "flux", counters,
+                lambda: batched_runner.run_batched(cfg, flags, root,
+                                                   timings=timings))
+    warm, timed = passes
+    b = len(flags)
+    first, *replays = ev.call_ms()
+    step_ms = statistics.median(replays)
+    paint_ms = ev_inp.call_ms()
+    log(f"flux: timed pass {wall:.3f} s, {b / wall * 60:.3f} objects/min; "
+        f"stage walls (s): " + json.dumps(
+            {k: round(v, 4) for k, v in timings.items()}))
+    log(f"flux: stage 1 {timed['stage1_wall']:.3f} s, {b} depths painted "
+        f"at {FLUX['res']}² (30 steps each; the inpaint call of each, VAE "
+        f"encode, sampler and decode, CUDA events: first "
+        f"{paint_ms[0]:.3f} ms, then median "
+        f"{statistics.median(paint_ms[1:]):.3f} ms, "
+        f"{statistics.median(paint_ms[1:]) / 30:.3f} ms a step); inpainter "
+        f"spans (s, calls) " + json.dumps(
+            {k: [round(t, 4), c]
+             for k, (t, c) in timed["spans"]["inpainter"].items()}))
+    log(f"flux: generation stage {timed['gen_wall']:.3f} s for {b} images "
+        f"at {FLUX['generate_res']}² in generate_obj_batch "
+        f"{FLUX['generate_obj_batch']} chunks: spans (s, calls) "
+        + json.dumps({k: [round(t, 4), c] for k, (t, c)
+                      in timed["spans"]["depth2image"].items()})
+        + f"; a sampler step over {b} objects (one MMDiT pass; CUDA "
+        f"events) {step_ms:.3f} ms as a CUDA graph replay (median of "
+        f"{len(replays)}), {first:.3f} ms for the first (eager warm-up, "
+        f"capture, replay)")
+    gib = 2 ** 30
+    gen_bytes = sum(timed["weights"]["depth2image"].values())
+    dit_bf16 = 2 * FLUX_PARAMS["dit"]
+    log(f"flux: weight bytes (GB) " + json.dumps(
+        {w: {k: round(v / 1e9, 4) for k, v in d.items()}
+         for w, d in timed["weights"].items()})
+        + f"; peak allocated over the pass {timed['peak'] / gib:.3f} GiB "
+        f"({(timed['peak'] - timed['base']) / gib:.3f} GiB above its "
+        f"start, {(timed['peak'] - timed['base'] - gen_bytes) / gib:.3f} "
+        f"GiB above the generator's weights, where every layer's bf16 "
+        f"kernel at once would be {dit_bf16 / gib:.3f} GiB) of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / gib:.3f} GiB; "
+        f"memory allocated {timed['base'] / 2**20:.1f} MiB before the pass, "
+        + ", ".join(f"{m / 2**20:.1f} MiB after {a}.release()"
+                    for a, m in timed["after"].items()))
+    cds = np.array([results[f]["cd"] for f in flags])
+    emds = np.array([results[f]["emd"] for f in flags])
+    for f in flags:
+        log(f"  {f}: CD x100 {results[f]['cd'] * 100:.4f} / EMD x100 "
+            f"{results[f]['emd'] * 100:.4f}")
+    log(f"flux: mean CD x100 {cds.mean() * 100:.4f}, mean EMD x100 "
+        f"{emds.mean() * 100:.4f} over {b} objects")
+    if set(results) != set(flags) or not (np.isfinite(cds).all()
+                                          and np.isfinite(emds).all()):
+        fail("flux: missing objects or non-finite CD/EMD")
+    size, res = FLUX["generate_res"], FLUX["res"]
+    if not (all(im.shape == (size, size, 3) and np.isfinite(im).all()
+                for im in timed["images"])
+            and all(d.shape == (3, res, res) and np.isfinite(d).all()
+                    for d in timed["depths"])):
+        fail("flux: a bad painted depth or generated image")
+    same_d = all(np.array_equal(x, y)
+                 for x, y in zip(warm["depths"], timed["depths"]))
+    same_i = all(np.array_equal(x, y)
+                 for x, y in zip(warm["images"], timed["images"]))
+    log(f"flux: warm-up and timed passes paint bitwise equal depths: "
+        f"{same_d}; generate bitwise equal images: {same_i}")
+    if not (same_d and same_i):
+        fail("flux: the two passes paint or generate differently")
+    if any(m - timed["base"] > RELEASE_SLACK
+           for m in timed["after"].values()):
+        fail("flux: a release() left its backend's memory allocated")
+    return {"results": results, "launches": launches, "wall": wall,
+            "step_ms": step_ms}
+
+
+def _step_inputs(b, n: int, dev):
+    """Seeded inputs of one sampler step of backend b over n objects at
+    FLUX's generation size: latents, a step index, condition latents and
+    the conditioning tensors (FLUX: a 512-token T5 context and the pooled
+    vector; Qwen: 512-token contexts with 300 valid tokens, twice)."""
+    import torch
+    hw = FLUX["generate_res"] // b.factor
+    c = b.dit_cfg
+    g = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    lat = randn(n, c.in_channels, hw, hw)
+    cond_lat = randn(n, c.cond_channels, hw, hw)
+    if b.variant == "flux":
+        cond = [randn(n, 512, c.text_dim), randn(n, c.pooled_dim)]
+    else:
+        mask = torch.zeros(n, 512, dtype=torch.bool, device=dev)
+        mask[:, :300] = True
+        cond = [randn(n, 512, c.text_dim), mask,
+                randn(n, 512, c.text_dim), mask]
+    return [lat, torch.tensor([3], device=dev), cond_lat, *cond]
+
+
+def _step_flops(variant: str, n: int) -> float:
+    """One sampler step's FLOPs over n objects (FlopCounterMode on the
+    meta device, the bf16 model: quantisation changes no product)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from genpc_tpu_torch.models.schedulers import FlowMatchEuler
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
+    meta = torch.device("meta")
+    mb = DiTDepthEdit(load_config(device="cuda", **dict(
+        FLUX, quant_bits=0, tower_quant_bits=0)), variant=variant)
+    with FlopCounterMode(display=False) as fc:
+        mb.sample_step(*_step_inputs(mb, n, meta),
+                       FlowMatchEuler(mb.steps, device=meta))
+    return fc.get_total_flops()
+
+
+def flux_params() -> None:
+    """The parameter counts of the FLUX backend at full size on the meta
+    device (the int4 modules counted at full precision), equal to the
+    reference's; and the bytes its int4 and bf16 weights take."""
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
+    from genpc_tpu_torch.models.quant import logical_params
+    q4 = DiTDepthEdit(load_config(device="cuda", **FLUX), variant="flux")
+    counts = {k: logical_params(m) for k, m in q4.models().items()}
+    log("flux parameters (meta device, at full precision): "
+        + json.dumps(counts))
+    if any(counts[k] != v for k, v in FLUX_PARAMS.items()):
+        fail(f"flux: parameter counts differ from the reference's "
+             f"{FLUX_PARAMS}")
+
+
+def flux_step_flops(n: int, int4_step_ms: float) -> None:
+    """One sampler step over n objects at 512² outside the pass: the FLUX
+    MMDiT at quant_bits 0 and 8 (int4 is the pass's) and the Qwen MMDiT
+    at int4 (its reference default; two passes a step, true CFG).  For
+    each: the graph replay's time (CUDA events, median of 3 behind a
+    device sleep), the FLOPs (FlopCounterMode) over it against the bf16
+    peak, the peak memory of the step (weights, inputs and the graph)
+    and the weight bytes; the backend is released after."""
+    import gc
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
+    from genpc_tpu_torch.models.quant import tree_bytes
+    from genpc_tpu_torch.models.schedulers import FlowMatchEuler
+    flops = {v: _step_flops(v, n) for v in ("flux", "qwen")}
+    log(f"flux sampler step, int4 (the pass): {flops['flux'] / 1e12:.4f} "
+        f"TFLOP over {n} objects in {int4_step_ms:.3f} ms = "
+        f"{flops['flux'] / int4_step_ms / 1e9:.2f} TFLOP/s, "
+        f"{flops['flux'] / int4_step_ms / 1e-3 / BF16_PEAK:.4f} of the H100 "
+        f"SXM's {BF16_PEAK / 1e12:.0f} TFLOP/s bf16 dense peak (data sheet)")
+    for variant, bits in (("flux", 0), ("flux", 8), ("qwen", 4)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        b = DiTDepthEdit(load_config(device="cuda", **dict(
+            FLUX, quant_bits=bits)), variant=variant)
+        t0 = time.time()
+        b.init_dit()
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        tensors = _step_inputs(b, n, b.device)
+        sched = FlowMatchEuler(b.steps, device=b.device)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: b._step(sched, tensors), reps=3)
+        peak = torch.cuda.max_memory_allocated()
+        f = flops[variant]
+        log(f"{variant} sampler step at quant_bits {bits} over {n} objects "
+            f"at {FLUX['generate_res']}²: {ms:.3f} ms as a CUDA graph "
+            f"replay (median of 3), {f / 1e12:.4f} TFLOP = "
+            f"{f / ms / 1e9:.2f} TFLOP/s, {f / ms / 1e-3 / BF16_PEAK:.4f} of "
+            f"the bf16 peak; MMDiT weights {tree_bytes(b.model) / 1e9:.4f} "
+            f"GB (random, drawn in {init_s:.3f} s); peak allocated "
+            f"{(peak - base) / 2**30:.3f} GiB above the "
+            f"{base / 2**20:.1f} MiB before it")
+        b.release()
+        del b, tensors
+    gc.collect()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "genpc_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2230,7 +2628,13 @@ def main() -> int:
         qwen_card_vs_host()
         runs["qwen"] = drive_qwen(root, flags, counters)
         qwen_step_flops(QWEN["generate_obj_batch"], runs["qwen"]["step_ms"])
-        runs["config4"] = drive_config4(root, flags[:IM_OBJECTS], counters)
+        runs["config4"] = drive_config4(root, flags[:CONFIG4_OBJECTS],
+                                        counters)
+        # 8. FLUX: the inpainter and FLUX.1-Depth-dev at their int4 defaults
+        flux_card_vs_host()
+        flux_params()
+        runs["flux"] = drive_flux(root, flags, counters)
+        flux_step_flops(len(flags), runs["flux"]["step_ms"])
         if "--profile" in sys.argv[1:]:
             profile_pass(root, flags)
     if not runs["registration"]["repeat"]:

@@ -11,13 +11,19 @@ sweeps, final refine), the reference's headline path; ``--aligned``
 declares aligned skip registration.  Work runs on ``cfg.device``
 (``--device``, the card by default).  With ``save`` set (the config
 default) the workspace files are written under ``--output``.  The
-generation backends are the synthetic ones unless ``--control-model
-controlnet`` (or ``adapter``) asks for the SDXL depth generator or
+generation backends are the synthetic ones unless ``--control-model``
+asks for a depth generator (``controlnet`` or ``adapter``: SDXL;
+``qwen``: Qwen-Image-Edit; ``flux``: FLUX.1-Depth-dev) or
 ``--generative-model instantmesh`` for the InstantMesh image-to-3D
 backend (per object through ``ScaleAdapter.scale_adapter``, batched
 through ``generate_meshes_batch`` in chunks of ``image23d_batch``), at
 ``--model-size tiny`` or ``full`` (the published widths), with seeded
-random weights unless ``cfg.weights_dir`` holds the checkpoints.
+random weights unless ``cfg.weights_dir`` holds the checkpoints.  The
+DiT generators (``qwen``, ``flux``) quantise their MMDiT
+(``--quant-bits``) and their prompt towers (``--tower-quant-bits``:
+Qwen2.5-VL, or T5-XXL) to int4 at full size unless told 8 or 0 (bf16).
+The FLUX inpainter of stage 1 is chosen in the config (``inpainter:
+flux``), as in the reference.
 
 Usage:
   python -m genpc_tpu_torch.main --config configs/redwood.yaml \
@@ -26,6 +32,8 @@ Usage:
       --control-model controlnet --model-size full
   python -m genpc_tpu_torch.main --data-dir DATA --batched \
       --generative-model instantmesh --model-size full
+  python -m genpc_tpu_torch.main --data-dir DATA --batched \
+      --control-model flux --model-size full [--quant-bits 8]
 """
 
 from __future__ import annotations
@@ -127,11 +135,15 @@ def main(argv=None):
     ap.add_argument("--model-size", default=None,
                     help="generative preset scale (tiny/base/full)")
     ap.add_argument("--quant-bits", type=int, default=None,
-                    help="weight-only quantization of the DiT backend "
-                         "(--control-model qwen): 0 (bf16); 8 and 4 are "
-                         "not ported and raise")
+                    choices=(0, 4, 8),
+                    help="weight-only quantization of the MMDiT of the DiT "
+                         "depth->image backends (--control-model qwen or "
+                         "flux): 4 (int4, the default at full size), 8 "
+                         "(int8) or 0 (bf16, the default below full size)")
     ap.add_argument("--tower-quant-bits", type=int, default=None,
-                    help="the same for its Qwen2.5-VL prompt towers")
+                    choices=(0, 4, 8),
+                    help="the same for their prompt towers: Qwen2.5-VL "
+                         "(qwen) or T5-XXL (flux); CLIP-L stays bf16")
     ap.add_argument("--aligned", action="store_true",
                     help="trust_aligned_completion: skip registration for "
                          "completions already in the input frame")
@@ -170,7 +182,8 @@ def main(argv=None):
         if getattr(args, key) is not None:
             if cfg.control_model not in ("qwen", "flux"):
                 ap.error(f"--{key.replace('_', '-')} applies to the DiT "
-                         f"depth->image backends (--control-model qwen)")
+                         f"depth->image backends (--control-model qwen or "
+                         f"flux)")
             cfg[key] = getattr(args, key)
     if args.aligned:
         cfg.trust_aligned_completion = True

@@ -2,11 +2,11 @@
 genpc_tpu/models/backends.py).
 
 Ported: the model-free synthetic backends, the depth->image generators
-(the SDXL ControlNet 'controlnet' or T2I-Adapter 'adapter', and
-Qwen-Image-Edit 'qwen'), and the InstantMesh image-to-3D backend
-('instantmesh'), each built on ``cfg.device``.  FLUX waits for the
-ROADMAP item "FLUX and T5", the other neural backends (RMBG, TRELLIS,
-SF3D) for "neural backends"; asking for one raises.
+(the SDXL ControlNet 'controlnet' or T2I-Adapter 'adapter',
+Qwen-Image-Edit 'qwen' and FLUX.1-Depth-dev 'flux'), and the
+InstantMesh image-to-3D backend ('instantmesh'), each built on
+``cfg.device``.  The other neural backends (RMBG, TRELLIS, SF3D) wait
+for the ROADMAP item "neural backends"; asking for one raises.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from genpc_tpu_torch.models.synthetic import (
     SyntheticDepth2Image, SyntheticImage23D, SyntheticRembg)
 
 _NEURAL = {
-    "depth2image": ("flux",),
+    "depth2image": (),
     "rembg": ("RMBG", "rmbg"),
     "image23d": ("trellis", "trellis_2", "sf3d"),
 }
@@ -41,10 +41,9 @@ def prep_rgb(image: np.ndarray, size: int) -> np.ndarray:
 
 def _not_ported(stage: str, name: str):
     if name in _NEURAL[stage]:
-        item = "FLUX and T5" if name == "flux" else "neural backends"
         return NotImplementedError(
             f"{stage} backend {name!r} is not ported to genpc_tpu_torch yet "
-            f"(ROADMAP: {item}); use 'synthetic'")
+            f"(ROADMAP: neural backends); use 'synthetic'")
     return ValueError(f"unknown {stage} backend {name!r}")
 
 
@@ -55,9 +54,9 @@ def get_depth2image(name: str, cfg: Any = None):
     if name in ("controlnet", "adapter"):
         from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
         return ControlNetDepth(cfg, adapter=name == "adapter")
-    if name == "qwen":
+    if name in ("qwen", "flux"):
         from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
-        return DiTDepthEdit(cfg, variant="qwen")
+        return DiTDepthEdit(cfg, variant=name)
     raise _not_ported("depth2image", name)
 
 

@@ -14,7 +14,9 @@ Compute types are the reference's, layer by layer: the block matmuls in
 bf16; the AdaLN modulations, ``norm_out``'s and ``proj_out`` in fp32;
 LayerNorms without affine in fp32 at eps 1e-6; RMS norms in fp32, cast
 back to their input's type; the tanh GELU.  RoPE rotates interleaved
-pairs (``0::2`` / ``1::2``) on a 3-axis table.
+pairs (``0::2`` / ``1::2``) on a 3-axis table.  With ``quant_bits`` 8
+or 4 every block matmul (the modulations included) is a
+``quant.QuantLinear``, as the reference's ``_tp_dense`` makes it.
 
 Attention is ``F.scaled_dot_product_attention`` on bf16 q/k/v with the
 key mask.  The reference switches above 2,048 joint tokens to
@@ -35,8 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from genpc_tpu_torch.models.layers import (
-    F32, NORM_EPS, Linear, RMSNorm, TimestepEmbed, box, gelu_tanh,
+    BF16, F32, NORM_EPS, Linear, RMSNorm, TimestepEmbed, box, gelu_tanh,
     sdpa_heads, timestep_embedding)
+from genpc_tpu_torch.models.quant import QuantLinear
 
 
 @dataclass(frozen=True)
@@ -55,6 +58,9 @@ class DiTConfig:
     cond_mode: str = "channels"   # 'channels' (flux) | 'sequence' (qwen)
     axes_dim: Tuple[int, int, int] = (16, 56, 56)  # RoPE dims per axis
     theta: int = 10000
+    # weight-only quantisation of every block matmul: 0 (bf16), 8 or 4
+    # (models/quant.py); embedders, norms and the output head stay
+    quant_bits: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -145,10 +151,20 @@ def _heads(x, heads: int, norm: RMSNorm):
     return norm(x.reshape(b, t, heads, d // heads))
 
 
+def block_linear(cfg: DiTConfig, in_features: int, out_features: int,
+                 compute: torch.dtype = BF16) -> nn.Module:
+    """A block matmul: ``Linear``, or ``QuantLinear`` at the config's
+    ``quant_bits``."""
+    if cfg.quant_bits:
+        return QuantLinear(in_features, out_features, cfg.quant_bits,
+                           compute=compute)
+    return Linear(in_features, out_features, compute=compute)
+
+
 class _GeluProj(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, cfg: DiTConfig, dim: int, inner: int):
         super().__init__()
-        self.proj = Linear(dim, inner)
+        self.proj = block_linear(cfg, dim, inner)
 
     def forward(self, x):
         return gelu_tanh(self.proj(x))
@@ -157,25 +173,27 @@ class _GeluProj(nn.Module):
 class GeluMLP(nn.Module):
     """diffusers FeedForward('gelu-approximate'): ``net.0.proj``, ``net.2``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, cfg: DiTConfig, dim: int):
         super().__init__()
-        self.net = nn.ModuleList([_GeluProj(dim, 4 * dim), nn.Identity(),
-                                  Linear(4 * dim, dim)])
+        self.net = nn.ModuleList([_GeluProj(cfg, dim, 4 * dim),
+                                  nn.Identity(),
+                                  block_linear(cfg, 4 * dim, dim)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
 
 
-def _modulation(dim: int, chunks: int, family: str) -> nn.Module:
+def _modulation(cfg: DiTConfig, chunks: int) -> nn.Module:
     """The AdaLN linear (fp32): FLUX's ``<norm>.linear``, Qwen's
     ``<stream>_mod.1`` (after its SiLU)."""
-    lin = Linear(dim, chunks * dim, compute=F32)
-    if family == "flux":
+    dim = cfg.hidden_dim
+    lin = block_linear(cfg, dim, chunks * dim, compute=F32)
+    if cfg.family == "flux":
         return box(linear=lin)
     return nn.ModuleList([nn.Identity(), lin])
 
 
-def _mod_linear(m: nn.Module) -> Linear:
+def _mod_linear(m: nn.Module) -> nn.Module:
     return m.linear if hasattr(m, "linear") else m[1]
 
 
@@ -192,14 +210,16 @@ class DoubleBlock(nn.Module):
                  ("img_mod", "txt_mod", "img_mlp", "txt_mlp"))
         self._names = names
         for n in names[:2]:
-            self.add_module(n, _modulation(d, 6, fam))
+            self.add_module(n, _modulation(cfg, 6))
         for n in names[2:]:
-            self.add_module(n, GeluMLP(d))
+            self.add_module(n, GeluMLP(cfg, d))
+
+        def lin():
+            return block_linear(cfg, d, d)
         self.attn = box(
-            to_q=Linear(d, d), to_k=Linear(d, d), to_v=Linear(d, d),
-            add_q_proj=Linear(d, d), add_k_proj=Linear(d, d),
-            add_v_proj=Linear(d, d), to_out=nn.ModuleList([Linear(d, d)]),
-            to_add_out=Linear(d, d),
+            to_q=lin(), to_k=lin(), to_v=lin(), add_q_proj=lin(),
+            add_k_proj=lin(), add_v_proj=lin(),
+            to_out=nn.ModuleList([lin()]), to_add_out=lin(),
             norm_q=RMSNorm(dh, keep_dtype=True),
             norm_k=RMSNorm(dh, keep_dtype=True),
             norm_added_q=RMSNorm(dh, keep_dtype=True),
@@ -238,13 +258,14 @@ class SingleBlock(nn.Module):
         super().__init__()
         d, dh = cfg.hidden_dim, cfg.head_dim
         self.heads = cfg.num_heads
-        self.norm = _modulation(d, 3, "flux")
-        self.attn = box(to_q=Linear(d, d), to_k=Linear(d, d),
-                        to_v=Linear(d, d),
+        self.norm = _modulation(cfg, 3)
+        self.attn = box(to_q=block_linear(cfg, d, d),
+                        to_k=block_linear(cfg, d, d),
+                        to_v=block_linear(cfg, d, d),
                         norm_q=RMSNorm(dh, keep_dtype=True),
                         norm_k=RMSNorm(dh, keep_dtype=True))
-        self.proj_mlp = Linear(d, 4 * d)
-        self.proj_out = Linear(5 * d, d)
+        self.proj_mlp = block_linear(cfg, d, 4 * d)
+        self.proj_out = block_linear(cfg, 5 * d, d)
 
     def forward(self, x, vec, cos, sin, mask=None):
         shift, scale, gate = self.norm.linear(

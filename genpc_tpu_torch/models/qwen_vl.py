@@ -23,11 +23,14 @@ Both towers carry the HF checkpoint's names below its prefixes
 Compute types are the reference's: bf16 matmuls, fp32 RMS norms (whose
 result stays fp32), RoPE in fp32; the text tower's residual stream is
 fp32, the vision tower's bf16.  Parameters are fp32 at the test preset
-and bf16 at full size.
+and bf16 at full size.  ``quant_bits`` (the reference's default: int4
+at full size) makes the text layers' and vision blocks' matmuls
+``quant.QuantLinear``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 from dataclasses import dataclass
@@ -40,6 +43,7 @@ from torch import nn
 
 from genpc_tpu_torch.models.layers import (
     BF16, F32, Linear, RMSNorm, box, sdpa_heads)
+from genpc_tpu_torch.models.quant import QuantLinear, resolve_quant_bits
 
 #: the random weights' seed (the reference initialises from PRNGKey(0))
 WEIGHT_SEED = 0
@@ -69,6 +73,9 @@ class QwenVLConfig:
     window: int = 112            # pixels; window cells = window/merge/patch
     fullatt_blocks: Tuple[int, ...] = (7, 15, 23, 31)
     vit_theta: float = 10000.0
+    # weight-only quantisation of the text layers' and vision blocks'
+    # matmuls: 0 (bf16), 8 or 4 (models/quant.py)
+    quant_bits: int = 0
 
     @property
     def window_cells(self) -> int:
@@ -87,16 +94,14 @@ class QwenVLConfig:
         raise ValueError(name)
 
 
-def resolve_quant_bits(bits, full: bool, key: str) -> int:
-    """The reference's default (None: int4 at full size, bf16 below) of a
-    weight-only quantisation setting; only 0 (bf16) is ported."""
-    bits = (4 if full else 0) if bits is None else int(bits)
-    if bits:
-        raise NotImplementedError(
-            f"{key}={bits}: weight-only int{bits} quantization is not "
-            f"ported to genpc_tpu_torch (ROADMAP: weight-only "
-            f"quantization); pass {key}=0 for bf16")
-    return bits
+def _dense(cfg: QwenVLConfig, in_features: int, out_features: int,
+           bias: bool = True) -> nn.Module:
+    """A block matmul: ``Linear``, or ``QuantLinear`` at the config's
+    ``quant_bits``."""
+    if cfg.quant_bits:
+        return QuantLinear(in_features, out_features, cfg.quant_bits,
+                           bias=bias)
+    return Linear(in_features, out_features, bias=bias)
 
 
 # --------------------------------------------------------------- M-RoPE
@@ -141,14 +146,15 @@ class QwenTextLayer(nn.Module):
         d, hd = cfg.hidden, cfg.head_dim
         self.input_layernorm = RMSNorm(d, cfg.eps)
         self.self_attn = box(
-            q_proj=Linear(d, cfg.heads * hd),
-            k_proj=Linear(d, cfg.kv_heads * hd),
-            v_proj=Linear(d, cfg.kv_heads * hd),
-            o_proj=Linear(cfg.heads * hd, d, bias=False))
+            q_proj=_dense(cfg, d, cfg.heads * hd),
+            k_proj=_dense(cfg, d, cfg.kv_heads * hd),
+            v_proj=_dense(cfg, d, cfg.kv_heads * hd),
+            o_proj=_dense(cfg, cfg.heads * hd, d, bias=False))
         self.post_attention_layernorm = RMSNorm(d, cfg.eps)
-        self.mlp = box(gate_proj=Linear(d, cfg.intermediate, bias=False),
-                       up_proj=Linear(d, cfg.intermediate, bias=False),
-                       down_proj=Linear(cfg.intermediate, d, bias=False))
+        self.mlp = box(
+            gate_proj=_dense(cfg, d, cfg.intermediate, bias=False),
+            up_proj=_dense(cfg, d, cfg.intermediate, bias=False),
+            down_proj=_dense(cfg, cfg.intermediate, d, bias=False))
 
     def forward(self, x, cos, sin, mask=None):
         cfg, a = self.cfg, self.self_attn
@@ -270,11 +276,11 @@ class QwenVisionBlock(nn.Module):
         self.cfg = cfg
         d = cfg.vit_dim
         self.norm1 = RMSNorm(d, cfg.eps)
-        self.attn = box(qkv=Linear(d, 3 * d), proj=Linear(d, d))
+        self.attn = box(qkv=_dense(cfg, d, 3 * d), proj=_dense(cfg, d, d))
         self.norm2 = RMSNorm(d, cfg.eps)
-        self.mlp = box(gate_proj=Linear(d, cfg.vit_ffn),
-                       up_proj=Linear(d, cfg.vit_ffn),
-                       down_proj=Linear(cfg.vit_ffn, d))
+        self.mlp = box(gate_proj=_dense(cfg, d, cfg.vit_ffn),
+                       up_proj=_dense(cfg, d, cfg.vit_ffn),
+                       down_proj=_dense(cfg, cfg.vit_ffn, d))
 
     def forward(self, x, cos, sin, window_len: int):
         """x [S, D] in window order; attention within runs of window_len
@@ -385,8 +391,9 @@ class QwenVLEncoder:
                  quant_bits: Optional[int] = None,
                  device: torch.device | str = "cuda"):
         full = size == "full"
-        resolve_quant_bits(quant_bits, full, "tower_quant_bits")
-        self.cfg = QwenVLConfig.preset(size)
+        self.cfg = dataclasses.replace(
+            QwenVLConfig.preset(size),
+            quant_bits=resolve_quant_bits(quant_bits, full))
         self.device = torch.device(device)
         self.dtype = BF16 if full else F32
         self.weights_dir = weights_dir

@@ -16,16 +16,25 @@ genpc_tpu/models/weights.py).
     state dict for a port module, through the port's copies of the
     reference's name maps and the layout transposes (conv HWIO -> OIHW,
     dense (in, out) -> (out, in)).
+  * A ``quant.QuantLinear`` draws its random weight in the quantised
+    form (the reference's ``_int_kernel_init``): a unit normal, rounded at
+    3 sigma full scale to the int codes, with the scale 3 / (qmax *
+    sqrt(in)) (so the dequantised weight has std 1 / sqrt(in)); its scale
+    and bias stay fp32 whatever the module's dtype.  The fp32 draw is one
+    tensor at a time.
   * ``load_sdxl_controlnet`` / ``load_clip_towers`` / ``load_instantmesh``
-    / ``load_dit`` / ``load_qwen_vl`` read diffusers / HF / InstantMesh
-    safetensors checkpoints in the reference's directory layout with a
-    reader of the port's own (no ``safetensors`` package needed) and load
-    them by name.
+    / ``load_dit`` / ``load_qwen_vl`` / ``load_t5_and_clip_l`` read
+    diffusers / HF / InstantMesh safetensors checkpoints in the
+    reference's directory layout with a reader of the port's own (no
+    ``safetensors`` package needed) and load them by name; into a
+    quantised module through ``quant.load_quantized`` (checked against
+    the full-precision names and shapes, then quantised).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import mmap
 import os
 import re
@@ -39,6 +48,9 @@ import torch
 from torch import nn
 
 from genpc_tpu_torch.models.layers import NORMS
+from genpc_tpu_torch.models.quant import (
+    QMAX, QuantLinear, dit_block_select, load_quantized, pack_int4,
+    t5_block_select, vl_block_select)
 
 # ------------------------------------------------------- materialisation
 
@@ -47,10 +59,30 @@ def _digest(seed: int, prefix: str, name: str) -> int:
     return zlib.crc32(f"{seed}:{prefix}:{name}".encode())
 
 
+def _generator(device, seed: int, prefix: str, name: str):
+    g = torch.Generator(device=device)
+    g.manual_seed(_digest(seed, prefix, name))
+    return g
+
+
 @torch.no_grad()
 def random_fill(module: nn.Module, seed: int = 0, prefix: str = "") -> None:
     """Norm scales 1, biases 0, other tensors N(0, 0.02) drawn per tensor
-    from a generator seeded by the digest of (seed, prefix, name)."""
+    from a generator seeded by the digest of (seed, prefix, name); a
+    QuantLinear's weight in its quantised form."""
+    for name, m in module.named_modules():
+        if isinstance(m, QuantLinear):
+            qmax = QMAX[m.bits]
+            w = torch.randn(m.out_features, m.in_features,
+                            device=m.weight.device,
+                            generator=_generator(m.weight.device, seed,
+                                                 prefix, f"{name}.weight"))
+            q = torch.clamp(torch.round(w * (qmax / 3.0)), -qmax, qmax)
+            del w
+            m.weight.copy_(pack_int4(q) if m.bits == 4 else q)
+            m.scale.fill_(3.0 / (qmax * math.sqrt(m.in_features)))
+            if m.bias is not None:
+                m.bias.zero_()
     norm_scales = {f"{n}.weight" for n, m in module.named_modules()
                    if isinstance(m, NORMS)}
     for name, p in module.named_parameters():
@@ -59,9 +91,8 @@ def random_fill(module: nn.Module, seed: int = 0, prefix: str = "") -> None:
         elif name.endswith("bias"):
             p.zero_()
         else:
-            g = torch.Generator(device=p.device)
-            g.manual_seed(_digest(seed, prefix, name))
-            p.normal_(0.0, 0.02, generator=g)
+            p.normal_(0.0, 0.02,
+                      generator=_generator(p.device, seed, prefix, name))
 
 
 def materialize(module: nn.Module, device: torch.device | str,
@@ -69,7 +100,11 @@ def materialize(module: nn.Module, device: torch.device | str,
                 prefix: str = "") -> nn.Module:
     """Storage for a meta-built module on ``device`` in ``dtype``, for
     inference; random weights when ``seed`` is given."""
-    module.to(dtype=dtype).to_empty(device=device).requires_grad_(False)
+    module.to(dtype=dtype)
+    for m in module.modules():
+        if isinstance(m, QuantLinear):
+            m.float()                # its scale and bias stay fp32
+    module.to_empty(device=device).requires_grad_(False)
     module.eval()
     if seed is not None:
         random_fill(module, seed, prefix)
@@ -378,6 +413,28 @@ def qwen_vl_name_to_flax(name: str) -> str:
     return "params/" + r
 
 
+def t5_name_to_flax(name: str) -> str:
+    """HF T5EncoderModel name -> reference flax path (a QuantLinear's
+    ``scale`` beside its weight's ``kernel``)."""
+    if name == "shared.weight":
+        return "params/shared/embedding"
+    if name == "encoder.final_layer_norm.weight":
+        return "params/final_layer_norm/scale"
+    if re.fullmatch(r"encoder\.block\.0\.layer\.0\.SelfAttention\."
+                    r"relative_attention_bias\.weight", name):
+        return "params/rel_bias"
+    m = re.fullmatch(r"encoder\.block\.(\d+)\.layer\.(\d)\.(.*)", name)
+    if not m:
+        raise ValueError(f"not a T5 encoder name: {name!r}")
+    i, layer, r = m.groups()
+    if r == "layer_norm.weight":
+        return f"params/block_{i}/{('attn_norm', 'ff_norm')[int(layer)]}/" \
+            "scale"
+    r = re.sub(r"^SelfAttention\.([qkvo])\.", r"attn/\1/", r)
+    r = re.sub(r"^DenseReluDense\.(wi_0|wi_1|wo)\.", r"\1/", r)
+    return f"params/block_{i}/" + re.sub(r"weight$", "kernel", r)
+
+
 #: the HF checkpoint prefixes of the Qwen2.5-VL towers (the newer layout
 #: first; ``model.`` alone is the older text prefix)
 QWEN_VL_PREFIXES = {"qwen_vl_text": ("model.language_model.", "model."),
@@ -389,7 +446,9 @@ def flax_path(kind: str, name: str, num_levels: int = 0,
     """The reference flax path of a port parameter of a model ``kind``
     (unet, controlnet, vae, adapter, clip_l, clip_g, clip_text,
     clip_vision, dit of the ``family`` qwen or flux, qwen_vl_text,
-    qwen_vl_vision), or the tuple of paths it takes (lrm)."""
+    qwen_vl_vision, t5), or the tuple of paths it takes (lrm)."""
+    if kind == "t5":
+        return t5_name_to_flax(name)
     if kind == "dit":
         return (qwen_name_to_flax if family == "qwen"
                 else flux_name_to_flax)(name)
@@ -428,9 +487,13 @@ def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
 def flax_layout(name: str, leaf: np.ndarray) -> np.ndarray:
     """A reference leaf in the port's layout: conv kernels HWIO -> OIHW,
     the triplane deconvolution's HWIO -> ConvTranspose2d's (in, out, kh,
-    kw), dense kernels (in, out) -> (out, in); others as they are."""
+    kw), dense kernels (in, out) -> (out, in), a packed int4 kernel
+    (in / 2, out) -> (out, in / 2) (each byte keeps its two inputs, so the
+    transpose is the port's packing); others as they are."""
     if name.endswith("/deconv/kernel"):
         return leaf.transpose(2, 3, 0, 1)
+    if name.endswith("/kernel_p4"):
+        return leaf.T
     if name.endswith("/kernel"):
         return leaf.T if leaf.ndim == 2 else leaf.transpose(3, 2, 0, 1)
     return leaf
@@ -439,9 +502,10 @@ def flax_layout(name: str, leaf: np.ndarray) -> np.ndarray:
 def from_flax(kind: str, flax_params, module: nn.Module
               ) -> Dict[str, torch.Tensor]:
     """State dict for ``module`` (a port model of ``kind``) from the
-    reference's parameter tree ({'params': ...} with numpy leaves).
-    Raises on a port parameter with no leaf, a shape that disagrees, or a
-    leaf no port parameter takes."""
+    reference's parameter tree ({'params': ...} with numpy leaves), its
+    quantised leaves (an int8 ``kernel`` or a packed ``kernel_p4`` with its
+    ``scale``) included.  Raises on a port parameter with no leaf, a shape
+    that disagrees, or a leaf no port parameter takes."""
     flat = {"/".join(p): np.asarray(v) for p, v in _flatten(flax_params)}
     levels = _levels(module)
     family = getattr(getattr(module, "cfg", None), "family", "qwen")
@@ -449,6 +513,9 @@ def from_flax(kind: str, flax_params, module: nn.Module
     for name, p in module.state_dict().items():
         paths = flax_path(kind, name, levels, family)
         paths = (paths,) if isinstance(paths, str) else paths
+        if len(paths) == 1 and paths[0] not in flat \
+                and f"{paths[0]}_p4" in flat:
+            paths = (f"{paths[0]}_p4",)
         for path in paths:
             if path not in flat:
                 raise KeyError(f"[{kind}] {name} -> {path}: no such leaf")
@@ -573,21 +640,50 @@ def load_instantmesh(weights_dir: str, backend) -> None:
                 return
 
 
+def _load(module: nn.Module, state, select) -> None:
+    """Strict load: directly into a full-precision module, through
+    ``load_quantized`` into one with QuantLinear layers."""
+    if any(isinstance(m, QuantLinear) for m in module.modules()):
+        load_quantized(module, state, select)
+    else:
+        module.load_state_dict(state, strict=True)
+
+
 def load_dit(weights_dir: str, backend, variant: str) -> None:
     """Load ``<weights_dir>/<variant>`` (the diffusers
     QwenImageTransformer2DModel or FluxTransformer2DModel safetensors)
-    into ``backend.model`` where it exists, strictly."""
+    into ``backend.model`` where it exists, strictly; a quantised MMDiT
+    takes the full-precision checkpoint and quantises its block
+    matmuls."""
     p = os.path.join(weights_dir, variant)
     if os.path.isdir(p):
-        backend.model.load_state_dict(load_safetensors_dir(p), strict=True)
+        _load(backend.model, load_safetensors_dir(p), dit_block_select)
+
+
+def load_t5_and_clip_l(weights_dir: str, t5: nn.Module, clip_l: nn.Module
+                       ) -> None:
+    """Load the FLUX text towers where their directories exist, strictly:
+    ``<weights_dir>/text_encoder_2`` (T5-XXL, its tied
+    ``encoder.embed_tokens`` duplicate dropped; quantised as ``t5`` is)
+    and ``/text_encoder`` (CLIP-L)."""
+    p = os.path.join(weights_dir, "text_encoder_2")
+    if os.path.isdir(p):
+        sd = load_safetensors_dir(p)
+        sd.pop("encoder.embed_tokens.weight", None)
+        _load(t5, sd, t5_block_select)
+    p = os.path.join(weights_dir, "text_encoder")
+    if os.path.isdir(p):
+        sd = load_safetensors_dir(p)
+        sd.pop("text_model.embeddings.position_ids", None)
+        clip_l.load_state_dict(sd, strict=True)
 
 
 def load_qwen_vl(weights_dir: str, text: nn.Module, vision: nn.Module
                  ) -> None:
     """Load ``<weights_dir>/text_encoder`` (Qwen2_5_VLForConditionalGeneration
     safetensors, either prefix layout) into the two towers where it
-    exists, strictly; ``lm_head`` (the encoder never computes logits) and
-    rotary buffers are dropped."""
+    exists, strictly (quantised as the towers are); ``lm_head`` (the
+    encoder never computes logits) and rotary buffers are dropped."""
     p = os.path.join(weights_dir, "text_encoder")
     if not os.path.isdir(p):
         return
@@ -604,5 +700,5 @@ def load_qwen_vl(weights_dir: str, text: nn.Module, vision: nn.Module
                 break
         else:
             raise ValueError(f"[qwen_vl] unexpected tensor {k!r}")
-    text.load_state_dict(parts["qwen_vl_text"], strict=True)
-    vision.load_state_dict(parts["qwen_vl_vision"], strict=True)
+    _load(text, parts["qwen_vl_text"], vl_block_select)
+    _load(vision, parts["qwen_vl_vision"], vl_block_select)

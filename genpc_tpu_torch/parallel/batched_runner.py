@@ -9,7 +9,9 @@ scores every object with CD-ℓ1 and auction EMD after FPS to
 Waymo-layout LiDAR scans, which have no GT: it scores each object by
 the partial->fused unidirectional Hausdorff distance (UHD), and with
 ``holdout_wedge_deg`` withholds an azimuthal wedge of each scan and
-scores the held-out points against the fused cloud.
+scores the held-out points against the fused cloud.  With
+``inpainter='flux'`` stage 1 paints each object's depth with the FLUX
+inpainter, which both runners free once stage 1 is done.
 
 Stage 3 registers by default (``trust_aligned_completion=False``, the
 reference's headline path): batched pose optimisation (4 starts × 200
@@ -51,7 +53,8 @@ from genpc_tpu_torch.ops.fps_kernel import fps_batched
 from genpc_tpu_torch.ops.voxel import voxel_down_sample
 from genpc_tpu_torch.pipeline.artifacts import (ObjectArtifacts,
                                                 input_artifacts)
-from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
+from genpc_tpu_torch.pipeline.depth_prompting import (
+    DepthPrompting, make_inpainter, paint_depth)
 from genpc_tpu_torch.pipeline.registration import resample_fixed
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
 from genpc_tpu_torch.registration import icp as _icp
@@ -454,6 +457,9 @@ def run_batched(cfg, flags: List[str], data_dir: str,
         arts.append(input_artifacts(flag, xyz, rgb, n_in))
     mark("load")
     batched_stage1(cfg, arts, dp.viewpoints, dp=dp)
+    # the inpainter is done once every depth is painted: free it before
+    # the generator loads (the reference keeps it resident)
+    _release_backend(dp, "inpainter")
     mark("stage1")
     _generate_images(cfg, dp, arts)
     _release_backend(dp, "depth2image")
@@ -571,6 +577,7 @@ def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
         arts.append(input_artifacts(flag, xyz, rgb, n_in))
 
     batched_stage1(cfg, arts, dp.viewpoints, dp=dp)
+    _release_backend(dp, "inpainter")
     _generate_images(cfg, dp, arts)
     _release_backend(dp, "depth2image")
     sa.scale_adapter_batch(arts)
@@ -630,8 +637,9 @@ def make_stage1_core(cfg, viewpoints: np.ndarray,
 
     FPS to ``downsample_num`` (one K2 launch over the batch),
     coarse-to-exact z-buffer viewpoint selection over the rig, the
-    best-vs-opposite depth-sum heuristic, splatting, masks and the
-    diffusion inpaint."""
+    best-vs-opposite depth-sum heuristic, splatting, masks and, with the
+    diffusion inpainter ('jax'), its fill (depth None otherwise: the
+    per-object inpainter paints it)."""
     from genpc_tpu_torch.geometry.cameras import rescale_uvs
     from genpc_tpu_torch.ops.hpr import (
         auto_zbuffer_res, select_best_view, visible_points_zbuffer)
@@ -647,6 +655,7 @@ def make_stage1_core(cfg, viewpoints: np.ndarray,
     mask_rate = int(cfg.mask_pixel_rate)
     padding = float(cfg.padding)
     inpaint_iters = int(cfg.get("inpaint_iters", 250))
+    fill = cfg.get("inpainter", "jax") == "jax"
     sel_coarse = int(cfg.get("select_coarse_points", 2500))
     sel_topk = int(cfg.get("select_topk", 48))
 
@@ -671,7 +680,8 @@ def make_stage1_core(cfg, viewpoints: np.ndarray,
                 mask_pixel_rate=mask_rate, valid=vis_s)
             out.append((uv_s, cand[pick], raw, m1, m2))
         uv, view, raw, m1, m2 = (torch.stack(t) for t in zip(*out))
-        depth = diffusion_inpaint(raw, m1, iters=inpaint_iters)
+        depth = diffusion_inpaint(raw, m1, iters=inpaint_iters) \
+            if fill else None
         return uv, view, raw, depth, m1, m2
 
     return core
@@ -680,20 +690,27 @@ def make_stage1_core(cfg, viewpoints: np.ndarray,
 def batched_stage1(cfg, arts: List[ObjectArtifacts],
                    viewpoints: np.ndarray, core=None,
                    dp: Optional[DepthPrompting] = None) -> None:
-    """Run the Stage-1 core over a batch; fill the artifacts' fields."""
-    if cfg.get("inpainter", "jax") != "jax":
-        raise NotImplementedError("only the diffusion inpainter ('jax') is "
-                                  "ported (ROADMAP: other inpainters)")
+    """Run the Stage-1 core over a batch; fill the artifacts' fields.  With
+    ``inpainter='flux'`` the FLUX inpainter of ``dp`` paints each
+    object's depth (the reference's per-object loop)."""
+    flux = cfg.get("inpainter", "jax") == "flux"
+    if flux and (dp is None or dp.inpainter is None):
+        raise ValueError("inpainter 'flux' needs the DepthPrompting that "
+                         "holds it (dp=...)")
+    if not flux:
+        make_inpainter(cfg)          # raises for the unported ones
     device = resolve_device(cfg.device)
     core = core or make_stage1_core(cfg, viewpoints, device=device)
     xyz = torch.as_tensor(np.stack([a.xyz for a in arts]),
                           dtype=torch.float32, device=device)
     rgb = torch.as_tensor(np.stack([a.rgb for a in arts]),
                           dtype=torch.float32, device=device)
-    uv, vp, raw, depth, m1, m2 = (t.cpu().numpy() for t in core(xyz, rgb))
+    uv, vp, raw, depth, m1, m2 = (None if t is None else t.cpu().numpy()
+                                  for t in core(xyz, rgb))
     for i, art in enumerate(arts):
         art.point_uv = uv[i]
         art.viewpoint = vp[i]
         art.raw_depth = raw[i]
         art.mask = m1[i]
-        art.depth = depth[i]
+        art.depth = paint_depth(dp.inpainter, raw[i], m1[i],
+                                int(cfg.res)) if flux else depth[i]

@@ -15,8 +15,11 @@ Two drivers share this class's camera rig and backends:
 
 Numeric contracts are the reference's: UV rescale to [0.05,0.95] with
 padding, the (row,col) pixel swap and clip, the inverted depth encoding
-0.1+0.8·(1−d̂), the vertical flip.  Only the device diffusion inpainter
-(``inpainter='jax'``, the reference's name for it) is ported.
+0.1+0.8·(1−d̂), the vertical flip.  Two inpainters are ported: the
+device diffusion fill (``inpainter='jax'``, the reference's name for it)
+and the FLUX inpainter (``inpainter='flux'``, which paints the raw
+depth's hole mask with the prompt "complete the depth map. "); DDNM and
+cv2 raise.
 """
 
 from __future__ import annotations
@@ -38,6 +41,33 @@ from genpc_tpu_torch.render.splat import raw_depth_images, uvs_to_pixels
 from genpc_tpu_torch.runtime import resolve_device
 
 
+#: the prompt the FLUX inpainter paints a depth map with (the reference's)
+INPAINT_PROMPT = "complete the depth map. "
+
+
+def make_inpainter(cfg):
+    """The inpainter of ``cfg.inpainter``: None for the diffusion fill
+    ('jax'), a ``FluxInpainter`` for 'flux'; the others raise."""
+    inpainter = cfg.get("inpainter", "jax")
+    if inpainter == "flux":
+        from genpc_tpu_torch.models.dit_depth import FluxInpainter
+        return FluxInpainter(cfg)
+    if inpainter != "jax":
+        raise NotImplementedError(
+            f"inpainter {inpainter!r} is not ported to genpc_tpu_torch yet "
+            f"(ROADMAP: other inpainters); the diffusion fill 'jax' and "
+            f"'flux' are")
+    return None
+
+
+def paint_depth(inpainter, raw: np.ndarray, hole: np.ndarray,
+                res: int) -> np.ndarray:
+    """One object's raw depth [3, res, res] painted over ``hole`` by the
+    FLUX inpainter (the reference's call: DepthPrompting.py:201-209)."""
+    return np.asarray(inpainter.paint(raw, hole, prompt=INPAINT_PROMPT,
+                                      size=res))
+
+
 class DepthPrompting:
     def __init__(self, cfg, depth2image=None):
         self.cfg = cfg
@@ -55,12 +85,8 @@ class DepthPrompting:
         self.depth2image = depth2image or get_depth2image(cfg.control_model,
                                                           cfg)
         self.workspace = Workspace(cfg.output_path, cfg.generative_model)
-        inpainter = cfg.get("inpainter", "jax")
-        if inpainter != "jax":
-            raise NotImplementedError(
-                f"inpainter {inpainter!r} is not ported to genpc_tpu_torch "
-                f"yet (ROADMAP: other inpainters); the diffusion fill 'jax' "
-                f"is")
+        self.inpainter = make_inpainter(cfg)
+        self.owns_inpainter = True
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -132,14 +158,18 @@ class DepthPrompting:
             pixels, depth, self._t(rgb), res=cfg.res,
             point_size=cfg.point_size, mask_pixel_rate=cfg.mask_pixel_rate,
             valid=torch.as_tensor(visible, device=self.device))
-        depth_img = diffusion_inpaint(raw_depth, m1,
-                                      iters=int(cfg.get("inpaint_iters",
-                                                        250)))
+        if self.inpainter is not None:
+            depth_img = paint_depth(self.inpainter, raw_depth.cpu().numpy(),
+                                    m1.cpu().numpy(), cfg.res)
+        else:
+            depth_img = diffusion_inpaint(
+                raw_depth, m1, iters=int(cfg.get("inpaint_iters", 250))
+            ).cpu().numpy()
 
         art.point_uv = uv.cpu().numpy()
         art.viewpoint = np.asarray(view)
         art.raw_depth = raw_depth.cpu().numpy()
-        art.depth = depth_img.cpu().numpy()
+        art.depth = depth_img
         art.mask = m1.cpu().numpy()
         return art
 

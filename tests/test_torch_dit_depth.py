@@ -2,8 +2,8 @@
 (genpc_tpu_torch/models/dit_depth.py) with the JAX reference's on the
 CPU: generate_batch end to end on the reference's jax.random draws, the
 grouping of objects into generate_obj_batch chunks, run_batched with the
-backend against the reference's run_batched, the quantisation settings
-that are not ported, and release().
+backend against the reference's run_batched, the quantisation settings,
+the FLUX variant's constructors, and release().
 
 Both backends carry the same weights (torch_models_ref.ref_params through
 weights.from_flax); the port's per-object draws are replaced by the
@@ -195,44 +195,68 @@ def test_run_batched_with_the_qwen_backend_matches_the_reference(
 
 def test_unported_quantization_raises(tmp_path):
     """quant_bits and tower_quant_bits resolve as in the reference (None:
-    int4 at full size, bf16 below); int8 and int4 are not ported and
-    raise naming the ROADMAP item, from the registry and from main.py's
-    --quant-bits and --tower-quant-bits (which a backend without them
-    refuses); 0 builds at every size, None at the tiny preset."""
+    int4 at full size, bf16 below; an explicit value wins): 0, 8 and 4
+    build at every size (the full-size default quantises the MMDiT's block
+    matmuls and the Qwen2.5-VL towers to int4); any other width raises,
+    from the registry and from main.py's --quant-bits and
+    --tower-quant-bits, which a backend without them still refuses."""
     from genpc_tpu_torch import main as tmain
+    from genpc_tpu_torch.models.quant import QuantLinear
 
     def cfg(**kw):
         return tconfig.load_config(device="cpu", **kw)
 
-    match = "ROADMAP: weight-only quantization"
-    for kw in (dict(quant_bits=4), dict(quant_bits=8),
-               dict(tower_quant_bits=4), dict(model_size="full"),
-               dict(model_size="full", quant_bits=0),
-               dict(model_size="full", tower_quant_bits=0)):
-        with pytest.raises(NotImplementedError, match=match):
-            get_depth2image("qwen", cfg(**kw))
-    for kw in (dict(), dict(quant_bits=0, tower_quant_bits=0),
-               dict(model_size="full", quant_bits=0, tower_quant_bits=0)):
+    for kw in (dict(quant_bits=3), dict(quant_bits=16),
+               dict(tower_quant_bits=2), dict(model_size="full",
+                                              quant_bits=1)):
+        for name in ("qwen", "flux"):
+            with pytest.raises(ValueError, match="bits"):
+                get_depth2image(name, cfg(**kw))
+    for kw, bits in ((dict(), 0), (dict(quant_bits=8, tower_quant_bits=4),
+                                   8),
+                     (dict(model_size="full"), 4),
+                     (dict(model_size="full", quant_bits=0,
+                           tower_quant_bits=0), 0)):
         b = get_depth2image("qwen", cfg(**kw))
         assert isinstance(b, DiTDepthEdit) and b.device.type == "cpu"
+        assert b.dit_cfg.quant_bits == bits
+        q = b.model.transformer_blocks[0].attn.to_q
+        assert isinstance(q, QuantLinear) == bool(bits)
     assert b.dit_cfg.double_blocks == 60 and b.vl.cfg.layers == 28
+    b = get_depth2image("qwen", cfg(model_size="full"))
+    assert b.vl.cfg.quant_bits == 4 and isinstance(
+        b.vl.text.layers[0].mlp.down_proj, QuantLinear)
     os.makedirs(tmp_path / "data")
     argv = ["--data-dir", str(tmp_path / "data"), "--device", "cpu",
             "--output", str(tmp_path / "ws")]
-    for flag in ("--quant-bits", "--tower-quant-bits"):
-        with pytest.raises(NotImplementedError, match=match):
-            tmain.main(argv + ["--control-model", "qwen", flag, "4"])
-        with pytest.raises(SystemExit):      # no DiT backend to quantise
-            tmain.main(argv + [flag, "0"])
+    seen = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmain, "run_pipeline",
+                   lambda cfg, *a, **k: seen.append(cfg))
+        for flag in ("--quant-bits", "--tower-quant-bits"):
+            for model in ("qwen", "flux"):
+                tmain.main(argv + ["--control-model", model, flag, "4"])
+                assert seen[-1][flag[2:].replace("-", "_")] == 4
+            with pytest.raises(SystemExit):  # no such width
+                tmain.main(argv + ["--control-model", "qwen", flag, "3"])
+            with pytest.raises(SystemExit):  # no DiT backend to quantise
+                tmain.main(argv + [flag, "0"])
 
 
 def test_flux_is_not_ported():
-    match = "ROADMAP: FLUX and T5"
-    for build in (lambda: get_depth2image("flux", {"device": "cpu"}),
-                  lambda: DiTDepthEdit({"device": "cpu"}, variant="flux"),
-                  lambda: FluxInpainter({"device": "cpu"})):
-        with pytest.raises(NotImplementedError, match=match):
-            build()
+    """FLUX was the last depth->image backend missing: now get_depth2image,
+    DiTDepthEdit and FluxInpainter all build it (on the asked device, with
+    the reference's 30 steps and guidance 10.0), and an unknown variant
+    raises."""
+    for b in (get_depth2image("flux", {"device": "cpu"}),
+              DiTDepthEdit({"device": "cpu"}, variant="flux"),
+              FluxInpainter({"device": "cpu"}).backend):
+        assert isinstance(b, DiTDepthEdit) and b.variant == "flux"
+        assert b.device.type == "cpu" and b.tower is b.t5
+        assert (b.steps, b.guidance) == (30, 10.0)
+        assert b.model.cfg.family == "flux"
+    with pytest.raises(ValueError, match="variant"):
+        DiTDepthEdit({"device": "cpu"}, variant="sd3")
 
 
 def test_generate_release_and_generate_again():

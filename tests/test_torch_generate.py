@@ -115,11 +115,11 @@ def test_backend_registry_builds_the_port_on_the_asked_device():
         with pytest.raises(RuntimeError, match="cuda"):
             get_depth2image("controlnet", tconfig.load_config(
                 model_size="tiny"))
-    with pytest.raises(NotImplementedError, match="ROADMAP: FLUX and T5"):
-        get_depth2image("flux", tconfig.load_config(device="cpu"))
     from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
-    q = get_depth2image("qwen", tconfig.load_config(device="cpu"))
-    assert isinstance(q, DiTDepthEdit) and q.device.type == "cpu"
+    for name in ("qwen", "flux"):
+        q = get_depth2image(name, tconfig.load_config(device="cpu"))
+        assert isinstance(q, DiTDepthEdit) and q.device.type == "cpu"
+        assert q.variant == name
 
 
 def test_generate_release_and_generate_again():
