@@ -12,13 +12,15 @@ Phases (any failure exits non-zero; nothing is caught):
      shapes the main paths give it: K1 at every launch class of the
      batched registration pass, of the per-object pass, of the Waymo
      pass over LIDAR_SCANS scans and of its UHD, of the image-to-3D pass
-     over IM_OBJECTS objects and of config 4 over CONFIG4_OBJECTS
-     (K1_SHAPES), with its launch plan, distances
+     over IM_OBJECTS objects, of config 4 over CONFIG4_OBJECTS and of
+     config 5's UHD over one scan (K1_SHAPES), with its launch plan,
+     distances
      bit-equal, argmins the first index, and the count of tied minima;
      K2 at the batched metric's and fusion's shapes, at a 13-object
      pass's stage 1, metric prediction and pose subsample and the Qwen
      and FLUX passes' fusions, at one object's, at the image-to-3D
-     pass's and config 4's, at the Waymo pass's, and at the PED shape
+     pass's and config 4's and 5's, at the Waymo pass's, and at the PED
+     shape
      (65,536 draws of 400 points, a tie at every late pick), the
      exact sequence, with its cluster size and how many clusters fit at
      once; K3 at 13 objects, at one and at IM_OBJECTS, bitwise equal to
@@ -130,13 +132,42 @@ Phases (any failure exits non-zero; nothing is caught):
      and of the Qwen MMDiT in int4, each as a graph replay, with its
      FLOPs over its time against the bf16 peak, its peak memory and its
      weight bytes.
+  9. BASELINE config 5 and the rest of its slice: RMBGMatting, the
+     TRELLIS and SF3D backends and the DDNM inpainter at their tiny
+     presets on the host and on the card with one state dict and the
+     same draws (the matte and the DDNM paint within GEN_IMAGE_TOL, the
+     paint's known pixels exact; TRELLIS's occupancy, SDF volume and
+     voxel colours and SF3D's SDF grid and vertex colours within
+     IM_SDF_TOL), the cv2 inpainter through batched_stage1 on both
+     devices (the stage-1 arrays bitwise equal), trellis_2 from the
+     registry on the card; the parameter counts on the meta device
+     against the reference's; then run_batched_lidar over CONFIG5_SCANS
+     generated CAR scan(s) at configs/lidar.yaml's values with a
+     60-degree held-out wedge, as the reference deploys config 5: FLUX
+     (int4) generates the image at 512², RMBG-2.0 (Swin-v1-Large) mattes
+     it at 1024², TRELLIS (25 steps in each flow, a 128³ SDF volume)
+     lifts it to a mesh, then registration and fusion; a warm-up and a
+     timed pass, the images, mattes and SDF volumes bitwise equal
+     between them, the spans of each backend, each TRELLIS flow loop's
+     time (CUDA events), the peak memory and the memory after each
+     release(), the meshes' sizes, UHD and held-out UHD finite, the
+     K1-K5 launches; then, outside the pass at full width, one TRELLIS
+     structure and SLAT flow step as graph replays and one RMBG forward
+     (times, FLOPs against the bf16 peak), SF3DBackend over the pass's
+     matted image (the device program's time, the 96³ marching, the
+     mesh) and one DDNM paint of the pass's stage-1 depth at res² (50
+     steps: a step's time and FLOPs, the known pixels exact).  One scan:
+     the pass was sized for the host marching of a random-weight 128³
+     volume (tens of seconds a pass); the marching now runs on the card
+     (bitwise equal to the host's, held in this phase), and one scan
+     keeps the whole script within its time limit.
 
 Cut for the time limit (1,200 s, the kernels' build included), when
 phase 8 came: config 4 runs over CONFIG4_OBJECTS = 1 object (was 3), the
 Waymo passes over LIDAR_SCANS = 4 scans a category (was 8), and the
 image-to-3D pass over IM_OBJECTS = 2 objects (was 3), phase 3 checking
 the kernels at the launch classes these give.  No path was dropped and
-no kernel check weakened.
+no kernel check weakened.  Phase 9 came with no further cut.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the batched registration pass, and by path); the last line
@@ -212,15 +243,17 @@ def fail(msg: str) -> None:
 # ------------------------------------------------------------ phase 3 ---
 
 #: objects of the image-to-3D pass (phase 6): a random-weight mesh has
-#: millions of faces, whose marching on the host takes tens of seconds an
-#: object a pass, so the pass runs over the first IM_OBJECTS of the 13
-#: objects (cut for the time limit, from 3 to 2 when phase 8 came;
-#: widths, steps and grid unchanged).  Its launch classes at
+#: millions of faces, whose marching took tens of seconds an object a
+#: pass while it ran on the host, so the pass runs over the first
+#: IM_OBJECTS of the 13 objects (cut for the time limit, from 3 to 2 when
+#: phase 8 came; widths, steps and grid unchanged; the marching now runs
+#: on the card in a fraction of a second).  Its launch classes at
 #: B = IM_OBJECTS are checked here.
 IM_OBJECTS = 2
 #: objects of BASELINE config 4's pass in phase 7 (Qwen-Image-Edit, then
-#: InstantMesh): one (cut from 3 for the time limit when phase 8 came;
-#: its marching of a shattered random-weight mesh takes ~24 s an object).
+#: InstantMesh): one (cut from 3 for the time limit when phase 8 came,
+#: when the marching of a shattered random-weight mesh took ~24 s an
+#: object on the host).
 #: Its launch classes are one object's (below: the per-object pass's,
 #: and "fine_c4")
 CONFIG4_OBJECTS = 1
@@ -289,6 +322,12 @@ K1_SHAPES = [
     # config 4 over CONFIG4_OBJECTS: the batched fine grid (250 candidates
     # an object; the other classes are the per-object pass's)
     ("fine_c4", (250 * CONFIG4_OBJECTS, 2048, 2048), CONFIG4_OBJECTS),
+    # config 5 over one scan (phase 9): its UHD and held-out UHD against
+    # the fused cloud the outlier mask left (the others are the
+    # per-object pass's and config 4's: the dedup, fine grid, ICP,
+    # refine and pose classes at one object)
+    ("uhd_c5", (1, 65536, 19612), 0),
+    ("holdout_c5", (1, 935, 19612), 0),
 ]
 K3_SHAPE = (13, 16384, 16384)
 #: K3 for one object (the per-object metric) and for the image-to-3D pass
@@ -496,6 +535,9 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     f_fusion = 140394 - rf.integers(0, 32768, 13)
     f_fusion[0] = 140394
     shapes["fusion_flux"] = (f_fusion.tolist(), 20000)
+    # config 5's fusion over one scan (phase 9): its partial with the
+    # 163,840 points sampled from its TRELLIS mesh
+    shapes["fusion_c5"] = ([226852], 20000)
     out = {}
     for name, (sizes, k) in shapes.items():
         if sizes is None:
@@ -816,7 +858,8 @@ PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
                 "instantmesh": tuple(k[0] for k in KERNELS),
                 "qwen": tuple(k[0] for k in KERNELS),
                 "config4": tuple(k[0] for k in KERNELS),
-                "flux": tuple(k[0] for k in KERNELS)}
+                "flux": tuple(k[0] for k in KERNELS),
+                "config5": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd")}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -2543,6 +2586,534 @@ def flux_step_flops(n: int, int4_step_ms: float) -> None:
     gc.collect()
 
 
+# ------------------------------------------------------------ phase 9 ---
+
+#: BASELINE config 5 as the reference deploys it: configs/lidar.yaml with
+#: the reference's backends (FLUX.1-Depth-dev for the images at the int4
+#: defaults, RMBG-2.0 for the mattes, TRELLIS for the meshes), every model
+#: at full width
+CONFIG5 = dict(LIDAR, control_model="flux", rembg_model="rmbg",
+               generative_model="trellis", model_size="full")
+#: CAR scans of the config-5 pass: one (sized for the host marching of a
+#: random-weight 128³ TRELLIS volume, tens of seconds a pass; on the card
+#: it takes a fraction of a second, and one scan keeps the script within
+#: its time limit)
+CONFIG5_SCANS = 1
+#: the reference's parameter counts (jax.eval_shape of its full presets;
+#: tests/test_torch_birefnet.py, test_torch_trellis.py and
+#: test_torch_inpainters.py hold the port's to them)
+CONFIG5_PARAMS = {"birefnet": 201_026_555, "trellis": 405_674_188,
+                  "sf3d": 378_826_062, "ddnm": 824_754_243}
+
+
+def _kept(img):
+    """A known pixel as the DDNM inpainter returns it: mapped to [-1, 1]
+    and back in fp32."""
+    import numpy as np
+    return np.clip((img * 2 - 1) / 2 + 0.5, 0, 1)
+
+
+def config5_card_vs_host(tmp: str) -> None:
+    """The new modules at their tiny presets on the host and on the card
+    with one state dict and the same draws: the RMBG matte within
+    GEN_IMAGE_TOL; TRELLIS's occupancy within IM_SDF_TOL (a voxel the
+    two put on either side of 0.5 within IM_SDF_TOL of it), its SDF
+    volume elsewhere within IM_SDF_TOL of the host's largest |sdf| and
+    its voxel colours within IM_SDF_TOL; SF3D's SDF grid within
+    IM_SDF_TOL of the largest |sdf| and its colours at the host mesh's
+    vertices within IM_SDF_TOL; the DDNM paint (50 steps) within
+    GEN_IMAGE_TOL with the known pixels exact; cv2 through batched_stage1
+    on both devices' stage-1 arrays; trellis_2 from the registry on the
+    card; and marching tetrahedra on the card bitwise equal to the
+    host's."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.io.ply import load_xyz
+    from genpc_tpu_torch.io.synthetic_data import write_dataset
+    from genpc_tpu_torch.models.backends import get_image23d, prep_rgb
+    from genpc_tpu_torch.models.ddnm import DDNMInpainter
+    from genpc_tpu_torch.models.lrm import mesh_from_sdf
+    from genpc_tpu_torch.models.rmbg import RMBGMatting
+    from genpc_tpu_torch.models.sf3d import SF3DBackend
+    from genpc_tpu_torch.models.trellis import TrellisBackend, _repeat3
+    from genpc_tpu_torch.ops.marching import marching_tetrahedra
+    from genpc_tpu_torch.parallel.batched_runner import batched_stage1
+    from genpc_tpu_torch.pipeline.artifacts import input_artifacts
+    from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
+    r = np.random.default_rng(0)
+
+    def pair(cls):
+        host = cls(load_config(device="cpu", model_size="tiny"))
+        host.init_params()
+        card = cls(load_config(device="cuda", model_size="tiny"))
+        (model,) = host.models().values()
+        card.init_params(model.state_dict())
+        return host, card
+
+    host, card = pair(RMBGMatting)
+    x = torch.from_numpy(r.random((2, 3, 64, 64)).astype(np.float32) - 0.5)
+    mh, mc = host.matte(x), card.matte(x.cuda()).cpu()
+    gap = float((mh - mc).abs().max())
+    log(f"rmbg card vs host, tiny, 2 images at 64²: matte max |d| "
+        f"{gap:.3e} (tolerance {GEN_IMAGE_TOL}), matte std "
+        f"{float(mh.std()):.3e}")
+    if not (torch.isfinite(mc).all() and gap <= GEN_IMAGE_TOL):
+        fail("rmbg card vs host: the mattes disagree")
+
+    host, card = pair(TrellisBackend)
+    imgs = np.stack([prep_rgb(r.random((48, 48, 4)).astype(np.float32),
+                              host.tc.img_size) for _ in range(2)])
+    x = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()) * 2 - 1
+    sn, ln = host.draws(2)
+    outs = [[t.cpu() for t in b.generate(x.to(b.device), sn.to(b.device),
+                                         ln.to(b.device))]
+            for b in (host, card)]
+    (sh, rh, oh), (sc, rc, oc) = outs
+    flip = (oh < 0.5) != (oc < 0.5)
+    keep = ~_repeat3(flip, host.tc.sdf_cells)
+    occ_gap = float((oh - oc).abs().max())
+    flip_gap = float((oh[flip] - 0.5).abs().max()) if flip.any() else 0.0
+    sdf_gap = float((sh - sc).abs()[keep].max()) / float(sh.abs().max())
+    rgb_gap = float((rh - rc).abs().max())
+    log(f"trellis card vs host, tiny, 2 objects, {host.steps} steps a "
+        f"flow: occupancy max |d| {occ_gap:.3e}, {int(flip.sum())} voxels "
+        f"flipped (within {flip_gap:.3e} of 0.5); SDF max |d| "
+        f"{sdf_gap:.3e} of max |sdf|, colours max |d| {rgb_gap:.3e} "
+        f"(tolerance {IM_SDF_TOL} each)")
+    if not (torch.isfinite(sc).all() and max(occ_gap, flip_gap, sdf_gap,
+                                             rgb_gap) <= IM_SDF_TOL):
+        fail("trellis card vs host: the volumes disagree")
+
+    host, card = pair(SF3DBackend)
+    s = host.net_cfg.img_size
+    imgs = np.stack([prep_rgb(r.random((48, 48, 4)).astype(np.float32), s)
+                     for _ in range(2)])
+    x = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()) * 2 - 1
+    ph, gh = host.density_grid(x)
+    pc, gc = card.density_grid(x.cuda())
+    sdf_gap = float((gh - gc.cpu()).abs().max()) / float(gh.abs().max())
+    verts, _ = mesh_from_sdf(gh[0].numpy())
+    col_gap = float(np.abs(host.vertex_colors(ph[0], verts)
+                           - card.vertex_colors(pc[0], verts)).max())
+    log(f"sf3d card vs host, tiny, 2 objects: SDF grid max |d| "
+        f"{sdf_gap:.3e} of max |sdf|, colours at {len(verts)} vertices "
+        f"max |d| {col_gap:.3e} (tolerance {IM_SDF_TOL} each)")
+    if not (torch.isfinite(gc).all() and sdf_gap <= IM_SDF_TOL
+            and col_gap <= IM_SDF_TOL):
+        fail("sf3d card vs host: the grids disagree")
+
+    host, card = pair(DDNMInpainter)
+    raw = _depth_image(seed=3, res=64)
+    hole = np.zeros((3, 64, 64), np.float32)
+    hole[:, 16:40, 20:52] = 1.0
+    noise = host.paint_draws((1, 3, 64, 64))
+    outs = []
+    for inp in (host, card):
+        inp.paint_draws = lambda shape, inp=inp: noise.to(inp.device)
+        outs.append(inp.inpaint(raw, hole))
+    known = hole.max(axis=0) < 0.5
+    gap = float(np.abs(outs[0] - outs[1]).max())
+    exact = all(np.array_equal(o[:, known], _kept(raw)[:, known])
+                for o in outs)
+    log(f"ddnm card vs host, tiny, 64², {host.steps} steps: max |d| "
+        f"{gap:.3e} (tolerance {GEN_IMAGE_TOL}), known pixels exact on "
+        f"both: {exact}")
+    if not (np.isfinite(outs[1]).all() and gap <= GEN_IMAGE_TOL and exact):
+        fail("ddnm card vs host: the paints disagree")
+
+    flags = ["01184", "05117"]
+    root = os.path.join(tmp, "tiny_cv2")
+    write_dataset(root, flags, seed=3, n_gt=8192)
+    stage1 = {}
+    for dev in ("cuda", "cpu"):
+        cfg = load_config(device=dev, **dict(TINY, inpainter="cv2"))
+        arts = [input_artifacts(f, *load_xyz(os.path.join(root, f"{f}.ply")),
+                                int(cfg.input_points)) for f in flags]
+        batched_stage1(cfg, arts, DepthPrompting(cfg).viewpoints)
+        stage1[dev] = [(a.raw_depth, a.mask, a.depth) for a in arts]
+    raw_gap = max(float(np.abs(c[0] - h[0]).max())
+                  for c, h in zip(stage1["cuda"], stage1["cpu"]))
+    same = [(np.array_equal(c[1], h[1]), np.array_equal(c[2], h[2]))
+            for c, h in zip(stage1["cuda"], stage1["cpu"])]
+    log(f"cv2 through batched_stage1, tiny, 2 objects, card vs host: raw "
+        f"depths max |d| {raw_gap:.3e} (the splat's rounding); (mask, "
+        f"painted depth) bitwise equal by object {same}")
+    if not all(all(s) for s in same):
+        fail("cv2 card vs host: the masks or painted depths disagree")
+
+    b = get_image23d("trellis_2", load_config(device="cuda",
+                                               model_size="tiny"))
+    m = b("01184", r.random((64, 64, 4)).astype(np.float32))
+    log(f"trellis_2 from the registry on the card, tiny: variant "
+        f"{b.variant!r}, a mesh of {len(m.vertices)} vertices and "
+        f"{len(m.faces)} faces")
+    if not (b.variant == "trellis_2" and b.device.type == "cuda"
+            and np.isfinite(m.vertices).all() and len(m.faces)):
+        fail("trellis_2: no mesh from the registry's backend")
+
+    field = r.normal(size=(64, 64, 64)).astype(np.float32)
+    level = float(np.median(field))
+    (vc, fc), (vh, fh) = (marching_tetrahedra(f, level) for f in (
+        torch.from_numpy(field).cuda(), field))
+    same = np.array_equal(vc, vh) and np.array_equal(fc, fh)
+    log(f"marching tetrahedra on the card vs the host, a random 64³ "
+        f"field at its median: {len(vc)} vertices, {len(fc)} faces, "
+        f"bitwise equal: {same}")
+    if not same:
+        fail("marching: the card's mesh differs from the host's")
+
+
+def config5_params() -> None:
+    """The parameter counts of the new modules at full size on the meta
+    device, equal to the reference's."""
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.ddnm import DDNMInpainter
+    from genpc_tpu_torch.models.rmbg import RMBGMatting
+    from genpc_tpu_torch.models.sf3d import SF3DBackend
+    from genpc_tpu_torch.models.trellis import TrellisBackend
+    cfg = load_config(device="cuda", model_size="full")
+    mods = {k: m for cls in (RMBGMatting, TrellisBackend, SF3DBackend,
+                             DDNMInpainter)
+            for k, m in cls(cfg).models().items()}
+    counts = {k: sum(v.numel() for v in m.state_dict().values())
+              for k, m in mods.items()}
+    log("config 5 parameters (meta device; BatchNorm statistics "
+        "included): " + json.dumps(counts))
+    if counts != CONFIG5_PARAMS or not all(
+            p.is_meta for m in mods.values() for p in m.parameters()):
+        fail(f"config 5: parameter counts differ from the reference's "
+             f"{CONFIG5_PARAMS}")
+
+
+def drive_config5(root: str, flags, counters) -> dict:
+    """BASELINE config 5: run_batched_lidar over ``flags`` (CAR scans)
+    with a 60-degree held-out wedge, FLUX generating each image at 512²
+    (30 steps, guidance 10.0, int4 MMDiT and T5), RMBG-2.0 matting it at
+    1024², TRELLIS lifting it to a mesh (25 steps in each flow, a 128³
+    SDF volume, marching tetrahedra on the host), then registration and
+    fusion.  A warm-up pass and the timed pass whose launches are
+    counted; both build their backends from the same seeds, so the
+    images, mattes and SDF volumes of the two must be bitwise equal and
+    the memory allocated after the last release() must be back at its
+    level before the pass."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.trellis import TrellisBackend
+    from genpc_tpu_torch.parallel import batched_runner
+    from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
+    cfg = load_config(device="cuda", **CONFIG5)
+    stage1, gen = batched_runner.batched_stage1, \
+        batched_runner._generate_images
+    stage2 = ScaleAdapter.scale_adapter_batch
+    generate, flow = TrellisBackend.generate, TrellisBackend._flow
+    release = batched_runner._release_backend
+    passes = []
+
+    def rec_stage1(cfg, arts, viewpoints, core=None, dp=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        passes.append(dict(base=torch.cuda.memory_allocated(), after={},
+                           spans={}, flows=[], sdf=[], t0=time.time()))
+        stage1(cfg, arts, viewpoints, core=core, dp=dp)
+
+    def rec_gen(cfg, dp, arts):
+        gen(cfg, dp, arts)
+        passes[-1]["images"] = [np.array(a.image) for a in arts]
+
+    def rec_stage2(self, arts):
+        stage2(self, arts)
+        rec = passes[-1]
+        rec["mattes"] = [np.array(a.image_nobg[..., 3]) for a in arts]
+        rec["meshes"] = [(len(a.complete_mesh.vertices),
+                          len(a.complete_mesh.faces)) for a in arts]
+        rec["arts"] = arts
+
+    def rec_generate(self, imgs, struct_noise, slat_noise):
+        out = generate(self, imgs, struct_noise, slat_noise)
+        passes[-1]["sdf"].append(out[0].cpu().numpy())
+        return out
+
+    def rec_flow(self, name, x, tok, extra, sched):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = flow(self, name, x, tok, extra, sched)
+        end.record()
+        passes[-1]["flows"].append((name, start, end, sched.num_steps))
+        return out
+
+    def rec_release(owner, attr):
+        backend = getattr(owner, attr, None)
+        release(owner, attr)
+        if backend is not None and attr in ("depth2image", "rembg",
+                                            "image23d"):
+            torch.cuda.synchronize()
+            rec = passes[-1]
+            rec["after"][attr] = torch.cuda.memory_allocated()
+            rec["spans"][attr] = backend.timer.as_dict()
+            rec["peak"] = torch.cuda.max_memory_allocated()
+
+    def one_pass():
+        return batched_runner.run_batched_lidar(cfg, flags, root, "CAR",
+                                                holdout_wedge_deg=60.0)
+
+    with patched((batched_runner, "batched_stage1", rec_stage1),
+                 (batched_runner, "_generate_images", rec_gen),
+                 (ScaleAdapter, "scale_adapter_batch", rec_stage2),
+                 (TrellisBackend, "generate", rec_generate),
+                 (TrellisBackend, "_flow", rec_flow),
+                 (batched_runner, "_release_backend", rec_release)):
+        t0 = time.time()
+        one_pass()
+        log(f"config5: warm-up pass {time.time() - t0:.2f} s")
+        results, wall, launches = _counted("config5", counters, one_pass)
+    warm, timed = passes
+    torch.cuda.synchronize()
+    b = len(flags)
+    flows = {}
+    for name, s, e, n in timed["flows"]:
+        flows[name] = [round(s.elapsed_time(e), 3), n]
+    log(f"config5 (FLUX -> RMBG-2.0 -> TRELLIS, {b} CAR scan(s), "
+        f"held-out wedge 60°): timed pass {wall:.3f} s, "
+        f"{b / wall * 60:.3f} objects/min; TRELLIS flows (ms for the "
+        f"loop incl. its first step's graph capture, steps; CUDA events) "
+        + json.dumps(flows))
+    for attr, spans in timed["spans"].items():
+        log(f"config5: {attr} spans (s, calls) " + json.dumps(
+            {k: [round(t, 4), c] for k, (t, c) in spans.items()}))
+    gib = 2 ** 30
+    log(f"config5: peak allocated over the pass {timed['peak'] / gib:.3f} "
+        f"GiB; memory allocated {timed['base'] / 2**20:.1f} MiB before "
+        f"the pass, " + ", ".join(f"{m / 2**20:.1f} MiB after {a}.release()"
+                                  for a, m in timed["after"].items()))
+    log("config5: meshes (vertices, faces) by scan, warm-up | timed: "
+        + json.dumps({f: [list(w), list(t)] for f, w, t in zip(
+            flags, warm["meshes"], timed["meshes"])}))
+    for f in flags:
+        log(f"  {f}: UHD x100 {results[f]['uhd'] * 100:.4f}, held-out UHD "
+            f"x100 {results[f].get('holdout_uhd', float('nan')) * 100:.4f}")
+    vals = [v for f in flags for v in results[f].values()]
+    if set(results) != set(flags) or not np.isfinite(vals).all() or \
+            not all("holdout_uhd" in results[f] for f in flags):
+        fail("config5: a missing scan, held-out wedge or non-finite UHD")
+    same = {k: all(np.array_equal(x, y) for x, y in zip(warm[k], timed[k]))
+            for k in ("images", "mattes", "sdf")}
+    log(f"config5: warm-up and timed passes bitwise equal: "
+        + json.dumps(same))
+    if not all(same.values()):
+        fail("config5: the two passes differ")
+    if timed["after"]["rembg"] - timed["base"] > RELEASE_SLACK:
+        fail("config5: the releases left their backends' memory "
+             "allocated")
+    return {"results": results, "launches": launches, "wall": wall,
+            "arts": timed["arts"]}
+
+
+def _graph_ms(cache: dict, key: tuple, fn, tensors, device) -> float:
+    """One call's time as a CUDA graph replay (median of 5, behind a
+    device sleep), the graph captured first."""
+    import torch
+    from genpc_tpu_torch.models.graphs import graphed_call
+    with torch.inference_mode():
+        graphed_call(cache, key, fn, tensors, device)
+        return cuda_ms(lambda: graphed_call(cache, key, fn, tensors,
+                                            device), reps=5)
+
+
+def _meta_flops(fn) -> float:
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return fc.get_total_flops()
+
+
+def config5_step_flops() -> None:
+    """At full width outside the pass, on seeded inputs: one TRELLIS
+    structure-flow step (4,096 tokens) and one SLAT-flow step (32,768
+    tokens) as CUDA graph replays, and one RMBG-2.0 forward at 1024²
+    (eager): each one's time (CUDA events), FLOPs (FlopCounterMode on the
+    meta device) and their rate against the bf16 peak, and the peak
+    memory; each backend released after."""
+    import gc
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.rmbg import RMBGMatting
+    from genpc_tpu_torch.models.schedulers import FlowMatchEuler
+    from genpc_tpu_torch.models.trellis import TrellisBackend
+    dev, meta = torch.device("cuda"), torch.device("meta")
+    cfg = load_config(device="cuda", model_size="full")
+    b, mb = TrellisBackend(cfg), TrellisBackend(cfg)
+    b.init_params()
+    tc = b.tc
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(device, name):
+        def randn(*shape):
+            return torch.randn(shape, device=device,
+                               generator=g if device == dev else None)
+        n_tok = (tc.img_size // tc.patch) ** 2
+        tok = randn(1, n_tok, tc.img_dim)
+        if name == "struct":
+            return [randn(1, tc.struct_res ** 3, 1),
+                    torch.tensor([3], device=device), tok]
+        return [randn(1, tc.slat_res ** 3, tc.slat_dim),
+                torch.tensor([3], device=device), tok,
+                torch.rand(1, tc.slat_res ** 3, 1, device=device)]
+
+    for name in ("struct", "slat"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sched = FlowMatchEuler(b.steps, device=dev)
+        model = getattr(b.net, f"{name}_flow")
+        ms = _graph_ms(
+            b._graphs, (name, b.steps),
+            lambda x, i, tok, *e, m=model, s=sched: b.flow_step(
+                m, x, i, tok, e[0] if e else None, s),
+            inputs(dev, name), dev)
+        peak = torch.cuda.max_memory_allocated()
+        msched = FlowMatchEuler(b.steps, device=meta)
+        mm = getattr(mb.net, f"{name}_flow")
+        t = inputs(meta, name)
+        flops = _meta_flops(lambda: mb.flow_step(
+            mm, t[0], t[1], t[2], t[3] if len(t) > 3 else None, msched))
+        log(f"trellis {name} flow step, one object ({t[0].shape[1]} "
+            f"tokens): {ms:.3f} ms as a CUDA graph replay (median of 5), "
+            f"{flops / 1e12:.4f} TFLOP = {flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{flops / ms / 1e-3 / BF16_PEAK:.4f} of the H100 SXM's "
+            f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16 dense peak; {b.steps} "
+            f"steps {b.steps * ms / 1e3:.3f} s; peak allocated "
+            f"{peak / 2**30:.3f} GiB")
+    b.release()
+    del b
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r, mr = RMBGMatting(cfg), RMBGMatting(cfg)
+    r.init_params()
+    s = r.net_cfg.img_size
+    x = torch.rand((1, 3, s, s), device=dev, generator=g) - 0.5
+    ms = cuda_ms(lambda: r.matte(x), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        flops = _meta_flops(lambda: mr.net(torch.empty((1, 3, s, s),
+                                                       device=meta)))
+    log(f"rmbg forward at {s}² (Swin-v1-Large BiRefNet, eager): {ms:.3f} "
+        f"ms (median of 3), {flops / 1e12:.4f} TFLOP = "
+        f"{flops / ms / 1e9:.2f} TFLOP/s, {flops / ms / 1e-3 / BF16_PEAK:.4f}"
+        f" of the bf16 peak; peak allocated {peak / 2**30:.3f} GiB")
+    r.release()
+    gc.collect()
+
+
+def drive_sf3d_full(run: dict) -> None:
+    """SF3DBackend.generate_meshes_batch at full width over one image (the
+    config-5 pass's matted image): the device program's time (the
+    triplanes and the 96³ SDF grid; CUDA events), the host marching's
+    seconds, the mesh's vertices and faces, and the peak memory; then
+    release()."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.sf3d import SF3DBackend
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b = SF3DBackend(load_config(device="cuda", model_size="full"))
+    art = run["arts"][0]
+    b.init_params()
+    grid = b.density_grid
+    ev = []
+
+    def timed_grid(images):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = grid(images)
+        end.record()
+        ev.append((start, end))
+        return out
+
+    b.density_grid = timed_grid
+    t0 = time.time()
+    (mesh,) = b.generate_meshes_batch([art.flag], [art.image_nobg])
+    wall = time.time() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    spans = {k: [round(t, 4), c] for k, (t, c) in b.timer.as_dict().items()}
+    log(f"sf3d at full width, one image: {wall:.3f} s; the device "
+        f"program (triplanes, {b.net_cfg.grid_res}³"
+        f" SDF grid) {ev[-1][0].elapsed_time(ev[-1][1]):.3f} ms (CUDA "
+        f"events); a mesh of {len(mesh.vertices)} vertices and "
+        f"{len(mesh.faces)} faces; spans (s, calls) "
+        + json.dumps(spans) + f"; peak allocated {peak / 2**30:.3f} GiB")
+    b.release()
+    torch.cuda.synchronize()
+    if not (np.isfinite(mesh.vertices).all() and len(mesh.faces)):
+        fail("sf3d: no finite mesh")
+    if torch.cuda.memory_allocated() - base > RELEASE_SLACK:
+        fail("sf3d: release() left its memory allocated")
+
+
+def drive_ddnm_full(run: dict) -> None:
+    """One DDNM paint at full width (the base UNet's widths in pixel
+    space, 50 DDIM steps, a CUDA graph a step) of the config-5 pass's
+    stage-1 raw depth at res² over its hole mask: the paint's time and
+    a step's as a graph replay (CUDA events), its FLOPs (FlopCounterMode
+    on the meta device) against the bf16 peak, the known pixels exact
+    and the peak memory; then release()."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.models.ddnm import DDNMInpainter
+    from genpc_tpu_torch.models.schedulers import DDIM
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = load_config(device="cuda", model_size="full")
+    inp, minp = DDNMInpainter(cfg), DDNMInpainter(cfg)
+    art = run["arts"][0]
+    raw, hole = art.raw_depth, art.mask.max(axis=0)
+    inp.init_params()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = inp.inpaint(raw, hole)
+    end.record()
+    torch.cuda.synchronize()
+    paint_ms = start.elapsed_time(end)
+    (graph,) = inp._graphs.values()
+    with torch.inference_mode():
+        step_ms = cuda_ms(lambda: graph(graph.bufs), reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    meta = torch.device("meta")
+    res = raw.shape[-1]
+    t = [torch.empty((1, 3, res, res), device=meta),
+         torch.tensor([3], device=meta),
+         torch.empty((1, 3, res, res), device=meta),
+         torch.empty((1, 1, res, res), device=meta),
+         torch.empty((1, 1, inp.unet_cfg.context_dim), device=meta)]
+    with torch.inference_mode():
+        flops = _meta_flops(lambda: minp.step(*t, DDIM(inp.steps,
+                                                       device=meta)))
+    known = hole < 0.5
+    exact = bool(np.array_equal(out[:, known], _kept(raw)[:, known]))
+    log(f"ddnm at full width, one {res}² depth, {inp.steps} steps: "
+        f"{paint_ms:.3f} ms (CUDA events; the first step captures its "
+        f"graph); a step {step_ms:.3f} ms as a graph replay (median of "
+        f"5), {flops / 1e12:.4f} TFLOP = {flops / step_ms / 1e9:.2f} "
+        f"TFLOP/s, {flops / step_ms / 1e-3 / BF16_PEAK:.4f} of the bf16 "
+        f"peak; {int((~known).sum())} hole pixels; known pixels exact: "
+        f"{exact}; peak allocated {peak / 2**30:.3f} GiB")
+    inp.release()
+    torch.cuda.synchronize()
+    if not (np.isfinite(out).all() and exact):
+        fail("ddnm: a non-finite paint or a known pixel changed")
+    if torch.cuda.memory_allocated() - base > RELEASE_SLACK:
+        fail("ddnm: release() left its memory allocated")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "genpc_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2635,6 +3206,15 @@ def main() -> int:
         flux_params()
         runs["flux"] = drive_flux(root, flags, counters)
         flux_step_flops(len(flags), runs["flux"]["step_ms"])
+        # 9. BASELINE config 5 (FLUX -> RMBG-2.0 -> TRELLIS) and the other
+        # modules of its slice (SF3D, DDNM, cv2)
+        config5_card_vs_host(tmp)
+        config5_params()
+        runs["config5"] = drive_config5(wroot, scans["CAR"][:CONFIG5_SCANS],
+                                        counters)
+        config5_step_flops()
+        drive_sf3d_full(runs["config5"])
+        drive_ddnm_full(runs["config5"])
         if "--profile" in sys.argv[1:]:
             profile_pass(root, flags)
     if not runs["registration"]["repeat"]:

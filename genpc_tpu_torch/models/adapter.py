@@ -7,8 +7,9 @@ level, in place of ControlNet's residual taps.
 The reference has no checkpoint name map for its adapter, so the
 parameters here are named after the reference's own module paths
 (``conv_in``, ``down_1``, ``res_0a.conv1``...): ``weights.from_flax``
-carries a reference tree across with transposes alone.  A loader for a
-real TencentARC adapter checkpoint waits (ROADMAP: neural backends).
+carries a reference tree across with transposes alone.  There is no
+loader for a real TencentARC adapter checkpoint (ROADMAP, "Not to
+port": the reference has no name map for one).
 """
 
 from __future__ import annotations

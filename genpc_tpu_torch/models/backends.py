@@ -1,12 +1,12 @@
 """Backend registry for the three generative stages (counterpart of
 genpc_tpu/models/backends.py).
 
-Ported: the model-free synthetic backends, the depth->image generators
-(the SDXL ControlNet 'controlnet' or T2I-Adapter 'adapter',
-Qwen-Image-Edit 'qwen' and FLUX.1-Depth-dev 'flux'), and the
-InstantMesh image-to-3D backend ('instantmesh'), each built on
-``cfg.device``.  The other neural backends (RMBG, TRELLIS, SF3D) wait
-for the ROADMAP item "neural backends"; asking for one raises.
+Every backend of the reference is ported, each built on ``cfg.device``:
+the model-free synthetic backends; the depth->image generators (the SDXL
+ControlNet 'controlnet' or T2I-Adapter 'adapter', Qwen-Image-Edit 'qwen'
+and FLUX.1-Depth-dev 'flux'); RMBG-2.0 background removal ('RMBG' or
+'rmbg'); and the image-to-3D backends ('instantmesh', 'trellis',
+'trellis_2', 'sf3d').  An unknown name raises ValueError.
 """
 
 from __future__ import annotations
@@ -17,12 +17,6 @@ import numpy as np
 
 from genpc_tpu_torch.models.synthetic import (
     SyntheticDepth2Image, SyntheticImage23D, SyntheticRembg)
-
-_NEURAL = {
-    "depth2image": (),
-    "rembg": ("RMBG", "rmbg"),
-    "image23d": ("trellis", "trellis_2", "sf3d"),
-}
 
 
 def prep_rgb(image: np.ndarray, size: int) -> np.ndarray:
@@ -39,14 +33,6 @@ def prep_rgb(image: np.ndarray, size: int) -> np.ndarray:
                       np.float32) / 255.0
 
 
-def _not_ported(stage: str, name: str):
-    if name in _NEURAL[stage]:
-        return NotImplementedError(
-            f"{stage} backend {name!r} is not ported to genpc_tpu_torch yet "
-            f"(ROADMAP: neural backends); use 'synthetic'")
-    return ValueError(f"unknown {stage} backend {name!r}")
-
-
 def get_depth2image(name: str, cfg: Any = None):
     """Depth-conditioned image generator: .generate(depth, category, size)."""
     if name == "synthetic":
@@ -57,14 +43,19 @@ def get_depth2image(name: str, cfg: Any = None):
     if name in ("qwen", "flux"):
         from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
         return DiTDepthEdit(cfg, variant=name)
-    raise _not_ported("depth2image", name)
+    raise ValueError(
+        f"unknown control_model {name!r}; use 'synthetic', 'controlnet', "
+        f"'adapter', 'flux' or 'qwen'")
 
 
 def get_rembg(name: str, cfg: Any = None):
     """Background removal: callable(image [H,W,3]) -> RGBA [H,W,4]."""
     if name in ("synthetic", "rembg"):
         return SyntheticRembg(cfg)
-    raise _not_ported("rembg", name)
+    if name in ("RMBG", "rmbg"):
+        from genpc_tpu_torch.models.rmbg import RMBGMatting
+        return RMBGMatting(cfg)
+    raise ValueError(f"unknown rembg_model {name!r}")
 
 
 def get_image23d(name: str, cfg: Any = None):
@@ -75,4 +66,10 @@ def get_image23d(name: str, cfg: Any = None):
     if name == "instantmesh":
         from genpc_tpu_torch.models.lrm import InstantMeshBackend
         return InstantMeshBackend(cfg)
-    raise _not_ported("image23d", name)
+    if name in ("trellis", "trellis_2"):
+        from genpc_tpu_torch.models.trellis import TrellisBackend
+        return TrellisBackend(cfg, variant=name)
+    if name == "sf3d":
+        from genpc_tpu_torch.models.sf3d import SF3DBackend
+        return SF3DBackend(cfg)
+    raise ValueError(f"unknown generative_model {name!r}")

@@ -138,7 +138,27 @@ class RMSNorm(nn.Module):
         return out.to(x.dtype) if self.keep_dtype else out
 
 
-NORMS = (GroupNorm, LayerNorm, RMSNorm)
+class BatchNorm2dInference(nn.Module):
+    """BatchNorm over the channels of NCHW in inference mode, from the
+    checkpoint's running statistics (``running_mean``/``running_var``
+    buffers), in fp32 with torch's and flax's default eps of 1e-5."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.empty(channels))
+        self.register_buffer("running_var", torch.empty(channels))
+
+    def forward(self, x):
+        inv = torch.rsqrt(self.running_var.to(F32) + 1e-5)
+        c = (1, -1, 1, 1)
+        return ((x.to(F32) - self.running_mean.to(F32).view(c))
+                * inv.view(c) * self.weight.to(F32).view(c)
+                + self.bias.to(F32).view(c))
+
+
+NORMS = (GroupNorm, LayerNorm, RMSNorm, BatchNorm2dInference)
 
 
 def box(**children: nn.Module) -> nn.Module:

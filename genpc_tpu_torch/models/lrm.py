@@ -26,7 +26,7 @@ and values, classifier-free guidance 4.0, and an Euler-ancestral step
 (trailing spacing, v-prediction).  ``denoise_latents`` is pure: it takes
 its N(0, 1) draws.  On the card each step is one CUDA graph replay.  The
 six 320² views are decoded as a 3x2 grid; the LRM's SDF on a 96³ grid is
-cut at its median by marching tetrahedra (host numpy, ops/marching.py),
+cut at its median by marching tetrahedra (ops/marching.py, on the card),
 and the vertex colours are queried at the vertices.
 
 Two behaviours of the reference are kept for parity (ROADMAP queue 3):
@@ -406,11 +406,22 @@ def zero123plus_cameras(num_views: int = 6, radius: float = 4.0
     return np.asarray(cams, np.float32)
 
 
-def mesh_from_sdf(sdf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Marching tetrahedra at the grid's median (a surface at any
-    weights), with the reference's one-triangle stand-in when nothing
-    crosses: (vertices [V,3] float32, faces [F,3] int32)."""
-    verts, faces = marching_tetrahedra(sdf, level=float(np.median(sdf)))
+def grid_points(res: int, device) -> torch.Tensor:
+    """A density grid's points [res³, 3] in [-1, 1], ij order."""
+    g = torch.from_numpy(np.linspace(-1.0, 1.0, res,
+                                     dtype=np.float32)).to(device)
+    return torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                       dim=-1).reshape(-1, 3)
+
+
+def mesh_from_sdf(sdf) -> Tuple[np.ndarray, np.ndarray]:
+    """Marching tetrahedra at the grid's median (numpy's, a surface at any
+    weights) on the grid's device, with the reference's one-triangle
+    stand-in when nothing crosses: (vertices [V,3] float32, faces [F,3]
+    int32)."""
+    host = sdf.cpu().numpy() if isinstance(sdf, torch.Tensor) \
+        else np.asarray(sdf)
+    verts, faces = marching_tetrahedra(sdf, level=float(np.median(host)))
     if len(verts) == 0:
         verts = np.zeros((3, 3), np.float32)
         faces = np.asarray([[0, 1, 2]], np.int32)
@@ -588,20 +599,13 @@ class InstantMeshBackend:
         cams = torch.from_numpy(zero123plus_cameras(self.lrm_cfg.num_views))
         return cams.to(self.device).expand(b, -1, -1)
 
-    def grid_points(self) -> torch.Tensor:
-        """The density grid's points [R³, 3] in [-1, 1], ij order."""
-        g = torch.from_numpy(np.linspace(-1.0, 1.0, self.lrm_cfg.grid_res,
-                                         dtype=np.float32)).to(self.device)
-        return torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
-                           dim=-1).reshape(-1, 3)
-
     @torch.inference_mode()
     def density_grid(self, views, cameras):
         """views [B, 6, 3, vs, vs], cameras [B, 6, 16] -> (triplanes [B, 3,
         R, R, C], SDF grids [B, Rg, Rg, Rg])."""
         planes = self.lrm.forward_planes(views, cameras)
-        pts = self.grid_points()
         r = self.lrm_cfg.grid_res
+        pts = grid_points(r, self.device)
         sdf = torch.stack([self.lrm.sdf_at(p, pts).reshape(r, r, r)
                            for p in planes])
         return planes, sdf
@@ -650,7 +654,6 @@ class InstantMeshBackend:
         with self.timer.span("grid"):
             planes, sdf = self.density_grid(views,
                                             self.cameras(len(images)))
-            sdf = sdf.cpu().numpy()
         meshes = []
         for i in range(len(images)):
             with self.timer.span("marching"):

@@ -101,22 +101,26 @@ class DDIM:
 
     def __post_init__(self):
         betas = betas_scaled_linear(self.num_train)
-        self.alphas_cum = _f32(np.cumprod(1.0 - betas), self.device)
+        a_cum = np.cumprod(1.0 - betas).astype(np.float32)
+        self.alphas_cum = _f32(a_cum, self.device)
         step = self.num_train // self.num_steps
-        self._ts = (np.arange(self.num_steps) * step)[::-1].copy()
-        self.timesteps = torch.as_tensor(self._ts, dtype=torch.int32,
+        ts = (np.arange(self.num_steps) * step)[::-1].copy()
+        self.timesteps = torch.as_tensor(ts, dtype=torch.int32,
                                          device=self.device)
+        #: per step: alpha_cum at t and at the previous timestep (1 after
+        #: the last step), so a step reads them with ``at``
+        self.a_t = _f32(a_cum[ts], self.device)
+        a_prev = a_cum[np.maximum(ts - step, 0)]
+        a_prev[-1] = 1.0
+        self.a_prev = _f32(a_prev, self.device)
         self.init_noise_sigma = 1.0
 
     def scale_model_input(self, sample, i: int):
         return sample
 
-    def step(self, eps, i: int, sample, noise=None):
-        t = int(self._ts[i])
-        a_t = self.alphas_cum[t]
-        prev_idx = max(t - self.num_train // self.num_steps, 0)
-        a_prev = (torch.ones_like(a_t) if i == self.num_steps - 1
-                  else self.alphas_cum[prev_idx])
+    def step(self, eps, i, sample, noise=None):
+        """One DDIM step; i an int or a [1] index tensor."""
+        a_t, a_prev = at(self.a_t, i), at(self.a_prev, i)
         x0 = (sample - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
         return torch.sqrt(a_prev) * x0 + torch.sqrt(1 - a_prev) * eps
 

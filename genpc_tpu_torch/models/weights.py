@@ -1,7 +1,6 @@
 """Parameters of the generative models: materialisation, seeded random
 weights, the reference's trees carried across, and checkpoint loading
-(counterpart of the SDXL, InstantMesh, MMDiT and Qwen2.5-VL parts of
-genpc_tpu/models/weights.py).
+(counterpart of genpc_tpu/models/weights.py).
 
   * ``materialize`` gives a module built on the meta device its storage
     on a device, in one dtype (fp32 at the test presets, bf16 at full
@@ -23,12 +22,17 @@ genpc_tpu/models/weights.py).
     and bias stay fp32 whatever the module's dtype.  The fp32 draw is one
     tensor at a time.
   * ``load_sdxl_controlnet`` / ``load_clip_towers`` / ``load_instantmesh``
-    / ``load_dit`` / ``load_qwen_vl`` / ``load_t5_and_clip_l`` read
-    diffusers / HF / InstantMesh safetensors checkpoints in the
-    reference's directory layout with a reader of the port's own (no
-    ``safetensors`` package needed) and load them by name; into a
-    quantised module through ``quant.load_quantized`` (checked against
-    the full-precision names and shapes, then quantised).
+    / ``load_dit`` / ``load_qwen_vl`` / ``load_t5_and_clip_l`` /
+    ``load_matting`` read diffusers / HF / InstantMesh / RMBG-2.0
+    safetensors checkpoints in the reference's directory layout with a
+    reader of the port's own (no ``safetensors`` package needed) and
+    load them by name; into a quantised module through
+    ``quant.load_quantized`` (checked against the full-precision names
+    and shapes, then quantised).  ``load_trellis`` / ``load_sf3d`` /
+    ``load_ddnm`` read checkpoints saved from the reference's own
+    architectures (named by its flax paths, ``load_saved``).
+  * BatchNorm's running statistics are buffers: a random fill sets them
+    to mean 0, variance 1.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from genpc_tpu_torch.models.layers import NORMS
+from genpc_tpu_torch.models.layers import NORMS, BatchNorm2dInference
 from genpc_tpu_torch.models.quant import (
     QMAX, QuantLinear, dit_block_select, load_quantized, pack_int4,
     t5_block_select, vl_block_select)
@@ -83,6 +87,10 @@ def random_fill(module: nn.Module, seed: int = 0, prefix: str = "") -> None:
             m.scale.fill_(3.0 / (qmax * math.sqrt(m.in_features)))
             if m.bias is not None:
                 m.bias.zero_()
+    for m in module.modules():
+        if isinstance(m, BatchNorm2dInference):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
     norm_scales = {f"{n}.weight" for n, m in module.named_modules()
                    if isinstance(m, NORMS)}
     for name, p in module.named_parameters():
@@ -435,6 +443,58 @@ def t5_name_to_flax(name: str) -> str:
     return f"params/block_{i}/" + re.sub(r"weight$", "kernel", r)
 
 
+def birefnet_name_to_flax(name: str) -> str:
+    """RMBG-2.0 (BiRefNet) name -> reference flax path; BatchNorm running
+    statistics go to the ``batch_stats`` collection."""
+    n = name
+    n = re.sub(r"^bb\.patch_embed\.proj\.", "bb.patch_embed_proj.", n)
+    n = re.sub(r"^bb\.patch_embed\.norm\.", "bb.patch_embed_norm.", n)
+    n = re.sub(r"^bb\.layers\.(\d+)\.blocks\.(\d+)\.",
+               r"bb.layer_\1_block_\2.", n)
+    n = re.sub(r"^bb\.layers\.(\d+)\.downsample\.", r"bb.downsample_\1.", n)
+    n = re.sub(r"^bb\.norm(\d)\.", r"bb.out_norm_\1.", n)
+    n = re.sub(r"\.mlp\.fc(\d)\.", r".fc\1.", n)
+    n = re.sub(r"^squeeze_module\.0\.", "squeeze_module_0.", n)
+    n = re.sub(r"^decoder\.decoder_block(\d)\.", r"decoder_block\1.", n)
+    n = re.sub(r"^decoder\.lateral_block(\d)\.", r"lateral_block\1.", n)
+    n = re.sub(r"^decoder\.gdt_convs_(\d)\.0\.", r"gdt_convs_\1_conv.", n)
+    n = re.sub(r"^decoder\.gdt_convs_(\d)\.1\.", r"gdt_convs_\1_bn.", n)
+    n = re.sub(r"^decoder\.gdt_convs_attn_(\d)\.0\.",
+               r"gdt_convs_attn_\1.", n)
+    n = re.sub(r"^decoder\.gdt_convs_pred_(\d)\.0\.",
+               r"gdt_convs_pred_\1.", n)
+    n = re.sub(r"^decoder\.conv_out1\.0\.", "conv_out1.", n)
+    n = n.replace(".", "/")
+    if n.endswith("/running_mean"):
+        return "batch_stats/" + n[: -len("running_mean")] + "mean"
+    if n.endswith("/running_var"):
+        return "batch_stats/" + n[: -len("running_var")] + "var"
+    if n.endswith("/weight"):
+        norm = re.search(r"(^|/)(norm\d?|patch_embed_norm|out_norm_\d|bn_in|"
+                         r"bn_out|gdt_convs_\d_bn)/weight$", n)
+        n = n[: -len("weight")] + ("scale" if norm else "kernel")
+    return "params/" + n
+
+
+#: the reference's tree of each of TrellisNet's networks
+TRELLIS_TREES = {"encoder": "encoder", "struct_flow": "struct",
+                 "slat_flow": "slat", "decoder": "decoder"}
+
+
+def trellis_name_to_flax(name: str) -> str:
+    """Port TrellisNet name -> reference flax path (its four trees, each
+    ``{'params': ...}``; the transformer blocks' names as the UNet's)."""
+    top, rest = name.split(".", 1)
+    n = re.sub(r"ff\.net\.0\.proj\.", "ff.proj_in.", rest)
+    n = re.sub(r"ff\.net\.2\.", "ff.proj_out.", n)
+    n = re.sub(r"to_out\.0\.", "to_out.", n).replace(".", "/")
+    if n.endswith("/weight"):
+        leaf = "scale" if re.search(r"(^|/)(norm\d|ln)/weight$", n) \
+            else "kernel"
+        n = n[: -len("weight")] + leaf
+    return f"{TRELLIS_TREES[top]}/params/{n}"
+
+
 #: the HF checkpoint prefixes of the Qwen2.5-VL towers (the newer layout
 #: first; ``model.`` alone is the older text prefix)
 QWEN_VL_PREFIXES = {"qwen_vl_text": ("model.language_model.", "model."),
@@ -444,9 +504,14 @@ QWEN_VL_PREFIXES = {"qwen_vl_text": ("model.language_model.", "model."),
 def flax_path(kind: str, name: str, num_levels: int = 0,
               family: str = "qwen"):
     """The reference flax path of a port parameter of a model ``kind``
-    (unet, controlnet, vae, adapter, clip_l, clip_g, clip_text,
-    clip_vision, dit of the ``family`` qwen or flux, qwen_vl_text,
-    qwen_vl_vision, t5), or the tuple of paths it takes (lrm)."""
+    (unet, ddnm (the pixel-space UNet), controlnet, vae, adapter, clip_l,
+    clip_g, clip_text, clip_vision, dit of the ``family`` qwen or flux,
+    qwen_vl_text, qwen_vl_vision, t5, birefnet, trellis), or the tuple of
+    paths it takes (lrm, sf3d)."""
+    if kind == "birefnet":
+        return birefnet_name_to_flax(name)
+    if kind == "trellis":
+        return trellis_name_to_flax(name)
     if kind == "t5":
         return t5_name_to_flax(name)
     if kind == "dit":
@@ -454,11 +519,11 @@ def flax_path(kind: str, name: str, num_levels: int = 0,
                 else flux_name_to_flax)(name)
     if kind in QWEN_VL_PREFIXES:
         return qwen_vl_name_to_flax(QWEN_VL_PREFIXES[kind][0] + name)
-    if kind == "lrm":
+    if kind in ("lrm", "sf3d"):
         return lrm_name_to_flax(name)
     if kind == "clip_vision":
         return clip_vision_name_to_flax(name)
-    if kind == "unet":
+    if kind in ("unet", "ddnm"):
         return sdxl_unet_name_to_flax(name, num_levels)
     if kind == "controlnet":
         return controlnet_name_to_flax(name, num_levels)
@@ -638,6 +703,87 @@ def load_instantmesh(weights_dir: str, backend) -> None:
                 backend.ramping = torch.as_tensor(
                     np.asarray(ramp, np.float32), device=backend.device)
                 return
+
+
+def convert_birefnet(tensors: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """An RMBG-2.0 checkpoint as BiRefNet's state dict: its names are the
+    port's; the registered buffers the port computes
+    (``relative_position_index``, ``attn_mask``) and the BatchNorm
+    counters are dropped, the running statistics kept."""
+    return {k: v for k, v in tensors.items()
+            if not k.endswith(("relative_position_index", "attn_mask",
+                               "num_batches_tracked"))}
+
+
+def load_matting(weights_dir: str, net: nn.Module) -> None:
+    """Load ``<weights_dir>/rmbg`` (the RMBG-2.0 safetensors) into a
+    BiRefNet where it exists, strictly."""
+    p = os.path.join(weights_dir, "rmbg")
+    if os.path.isdir(p):
+        net.load_state_dict(convert_birefnet(load_safetensors_dir(p)),
+                            strict=True)
+
+
+def saved_name(path: str) -> str:
+    """The tensor name a checkpoint saved from the reference's trees
+    gives a flax path: dots for slashes, ``weight`` for ``kernel`` (the
+    reference's generic rename table, read backwards)."""
+    n = path.replace("/", ".")
+    return n[: -len("kernel")] + "weight" if n.endswith(".kernel") else n
+
+
+def load_saved(kind: str, module: nn.Module,
+               tensors: Dict[str, torch.Tensor], strict: bool = True
+               ) -> None:
+    """Load a checkpoint saved from the reference's architecture of a
+    model ``kind`` (TRELLIS, SF3D, the DDNM UNet: torch-layout tensors
+    named by ``saved_name`` of their flax paths; a fused port parameter
+    takes its paths' tensors concatenated).  ``strict``: raise on a
+    missing or a left-over tensor; otherwise print them and load the
+    rest (the reference's DDNM load)."""
+    levels = _levels(module)
+    state, missing, left = {}, [], dict(tensors)
+    for name in module.state_dict():
+        paths = flax_path(kind, name, levels)
+        names = [saved_name(p) for p in
+                 ((paths,) if isinstance(paths, str) else paths)]
+        if all(n in left for n in names):
+            state[name] = torch.cat([left.pop(n) for n in names])
+        else:
+            missing.append(name)
+    if strict and (missing or left):
+        raise ValueError(f"[{kind}] missing {missing[:8]}, unexpected "
+                         f"{sorted(left)[:8]}")
+    if missing or left:
+        print(f"[weights:{kind}] missing {missing[:5]}, unexpected "
+              f"{sorted(left)[:5]}")
+    module.load_state_dict(state, strict=strict)
+
+
+def load_trellis(weights_dir: str, net: nn.Module) -> None:
+    """Load ``<weights_dir>/trellis``, a checkpoint saved from this
+    architecture (no public TRELLIS checkpoint fits it), strictly."""
+    p = os.path.join(weights_dir, "trellis")
+    if os.path.isdir(p):
+        load_saved("trellis", net, load_safetensors_dir(p))
+
+
+def load_sf3d(weights_dir: str, net: nn.Module) -> None:
+    """Load ``<weights_dir>/sf3d``, a checkpoint saved from this
+    architecture (no public Stable-Fast-3D checkpoint fits it),
+    strictly."""
+    p = os.path.join(weights_dir, "sf3d")
+    if os.path.isdir(p):
+        load_saved("sf3d", net, load_safetensors_dir(p))
+
+
+def load_ddnm(weights_dir: str, unet: nn.Module) -> None:
+    """Load ``<weights_dir>/ddnm`` into the DDNM UNet where it exists,
+    non-strictly as the reference does (the misses are printed)."""
+    p = os.path.join(weights_dir, "ddnm")
+    if os.path.isdir(p):
+        load_saved("ddnm", unet, load_safetensors_dir(p), strict=False)
 
 
 def _load(module: nn.Module, state, select) -> None:

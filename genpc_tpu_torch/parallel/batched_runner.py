@@ -10,8 +10,10 @@ Waymo-layout LiDAR scans, which have no GT: it scores each object by
 the partial->fused unidirectional Hausdorff distance (UHD), and with
 ``holdout_wedge_deg`` withholds an azimuthal wedge of each scan and
 scores the held-out points against the fused cloud.  With
-``inpainter='flux'`` stage 1 paints each object's depth with the FLUX
-inpainter, which both runners free once stage 1 is done.
+``inpainter`` 'flux', 'DDNM' or 'cv2' stage 1 paints each object's
+depth with that inpainter (both runners free a FLUX or DDNM inpainter
+once stage 1 is done), and the RMBG matting backend is freed after stage
+2 with the image-to-3D backend.
 
 Stage 3 registers by default (``trust_aligned_completion=False``, the
 reference's headline path): batched pose optimisation (4 starts × 200
@@ -466,6 +468,7 @@ def run_batched(cfg, flags: List[str], data_dir: str,
     mark("generate")
     sa.scale_adapter_batch(arts)
     _release_backend(sa, "image23d")
+    _release_backend(sa, "rembg")
     mark("stage2")
 
     batch = batch or len(arts)
@@ -582,6 +585,7 @@ def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
     _release_backend(dp, "depth2image")
     sa.scale_adapter_batch(arts)
     _release_backend(sa, "image23d")
+    _release_backend(sa, "rembg")
     batch = batch or len(arts)
     for i in range(0, len(arts), batch):
         batched_reg(cfg, arts[i:i + batch], fusion_debug=fusion_debug)
@@ -691,14 +695,19 @@ def batched_stage1(cfg, arts: List[ObjectArtifacts],
                    viewpoints: np.ndarray, core=None,
                    dp: Optional[DepthPrompting] = None) -> None:
     """Run the Stage-1 core over a batch; fill the artifacts' fields.  With
-    ``inpainter='flux'`` the FLUX inpainter of ``dp`` paints each
-    object's depth (the reference's per-object loop)."""
-    flux = cfg.get("inpainter", "jax") == "flux"
-    if flux and (dp is None or dp.inpainter is None):
-        raise ValueError("inpainter 'flux' needs the DepthPrompting that "
-                         "holds it (dp=...)")
-    if not flux:
-        make_inpainter(cfg)          # raises for the unported ones
+    an inpainter other than the diffusion fill each object's depth is
+    painted in the reference's per-object loop: by the FLUX or DDNM
+    inpainter that ``dp`` holds (DDNM over hole mask 2, which it keeps as
+    the object's mask), or by cv2 on the host."""
+    name = cfg.get("inpainter", "jax")
+    inpainter = None
+    if name in ("flux", "DDNM"):
+        if dp is None or dp.inpainter is None:
+            raise ValueError(f"inpainter {name!r} needs the DepthPrompting "
+                             f"that holds it (dp=...)")
+        inpainter = dp.inpainter
+    else:
+        make_inpainter(cfg)          # raises for an unknown name
     device = resolve_device(cfg.device)
     core = core or make_stage1_core(cfg, viewpoints, device=device)
     xyz = torch.as_tensor(np.stack([a.xyz for a in arts]),
@@ -711,6 +720,6 @@ def batched_stage1(cfg, arts: List[ObjectArtifacts],
         art.point_uv = uv[i]
         art.viewpoint = vp[i]
         art.raw_depth = raw[i]
-        art.mask = m1[i]
-        art.depth = paint_depth(dp.inpainter, raw[i], m1[i],
-                                int(cfg.res)) if flux else depth[i]
+        art.mask = m2[i] if name == "DDNM" else m1[i]
+        art.depth = depth[i] if name == "jax" else paint_depth(
+            cfg, inpainter, raw[i], m1[i], m2[i])

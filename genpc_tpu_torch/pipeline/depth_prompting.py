@@ -15,11 +15,13 @@ Two drivers share this class's camera rig and backends:
 
 Numeric contracts are the reference's: UV rescale to [0.05,0.95] with
 padding, the (row,col) pixel swap and clip, the inverted depth encoding
-0.1+0.8·(1−d̂), the vertical flip.  Two inpainters are ported: the
-device diffusion fill (``inpainter='jax'``, the reference's name for it)
-and the FLUX inpainter (``inpainter='flux'``, which paints the raw
-depth's hole mask with the prompt "complete the depth map. "); DDNM and
-cv2 raise.
+0.1+0.8·(1−d̂), the vertical flip.  The inpainters are the
+reference's (DepthPrompting.py:201-229): the device diffusion fill
+(``inpainter='jax'``, the reference's name for it), OpenCV's
+Navier-Stokes fill on the host (``'cv2'``), the FLUX inpainter
+(``'flux'``, which paints the raw depth's hole mask 1 with the prompt
+"complete the depth map. ") and DDNM (``'DDNM'``, which paints hole mask
+2 and keeps it as the object's mask); any other name raises.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from genpc_tpu_torch.models.backends import get_depth2image
 from genpc_tpu_torch.ops.fps import farthest_point_sample
 from genpc_tpu_torch.ops.hpr import select_best_view, visible_points
 from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts, Workspace
-from genpc_tpu_torch.render.inpaint import diffusion_inpaint
+from genpc_tpu_torch.render.inpaint import diffusion_inpaint, inpaint_image
 from genpc_tpu_torch.render.splat import raw_depth_images, uvs_to_pixels
 from genpc_tpu_torch.runtime import resolve_device
 
@@ -47,25 +49,36 @@ INPAINT_PROMPT = "complete the depth map. "
 
 def make_inpainter(cfg):
     """The inpainter of ``cfg.inpainter``: None for the diffusion fill
-    ('jax'), a ``FluxInpainter`` for 'flux'; the others raise."""
+    ('jax') and cv2 (functions of render/inpaint.py), a
+    ``FluxInpainter`` for 'flux', a ``DDNMInpainter`` for 'DDNM'; any
+    other name raises."""
     inpainter = cfg.get("inpainter", "jax")
     if inpainter == "flux":
         from genpc_tpu_torch.models.dit_depth import FluxInpainter
         return FluxInpainter(cfg)
-    if inpainter != "jax":
-        raise NotImplementedError(
-            f"inpainter {inpainter!r} is not ported to genpc_tpu_torch yet "
-            f"(ROADMAP: other inpainters); the diffusion fill 'jax' and "
-            f"'flux' are")
+    if inpainter == "DDNM":
+        from genpc_tpu_torch.models.ddnm import DDNMInpainter
+        return DDNMInpainter(cfg)
+    if inpainter not in ("jax", "cv2"):
+        raise NotImplementedError(f"Inpainter {inpainter} not implemented.")
     return None
 
 
-def paint_depth(inpainter, raw: np.ndarray, hole: np.ndarray,
-                res: int) -> np.ndarray:
-    """One object's raw depth [3, res, res] painted over ``hole`` by the
-    FLUX inpainter (the reference's call: DepthPrompting.py:201-209)."""
-    return np.asarray(inpainter.paint(raw, hole, prompt=INPAINT_PROMPT,
-                                      size=res))
+def paint_depth(cfg, inpainter, raw: np.ndarray, m1: np.ndarray,
+                m2: np.ndarray) -> np.ndarray:
+    """One object's raw depth [3, res, res] painted by the inpainter of
+    ``cfg.inpainter`` other than the diffusion fill (the reference's
+    calls: DepthPrompting.py:201-229): FLUX over hole mask 1 with the
+    prompt, DDNM over hole mask 2, cv2 over hole mask 1."""
+    name = cfg.get("inpainter", "jax")
+    if name == "flux":
+        return np.asarray(inpainter.paint(raw, m1, prompt=INPAINT_PROMPT,
+                                          size=int(cfg.res)))
+    if name == "DDNM":
+        return np.asarray(inpainter.inpaint(raw, m2))
+    if name == "cv2":
+        return inpaint_image(raw, m1, backend="cv2").numpy()
+    raise ValueError(f"inpainter {name!r} paints on the device")
 
 
 class DepthPrompting:
@@ -154,23 +167,24 @@ class DepthPrompting:
             uv, depth, visible, view = uv_o, d_o, vis2, opposite
 
         pixels = uvs_to_pixels(uv, cfg.res)
-        _, raw_depth, m1, _ = raw_depth_images(
+        _, raw_depth, m1, m2 = raw_depth_images(
             pixels, depth, self._t(rgb), res=cfg.res,
             point_size=cfg.point_size, mask_pixel_rate=cfg.mask_pixel_rate,
             valid=torch.as_tensor(visible, device=self.device))
-        if self.inpainter is not None:
-            depth_img = paint_depth(self.inpainter, raw_depth.cpu().numpy(),
-                                    m1.cpu().numpy(), cfg.res)
-        else:
+        inpainter = cfg.get("inpainter", "jax")
+        raw, h1, h2 = (t.cpu().numpy() for t in (raw_depth, m1, m2))
+        if inpainter == "jax":
             depth_img = diffusion_inpaint(
                 raw_depth, m1, iters=int(cfg.get("inpaint_iters", 250))
             ).cpu().numpy()
+        else:
+            depth_img = paint_depth(cfg, self.inpainter, raw, h1, h2)
 
         art.point_uv = uv.cpu().numpy()
         art.viewpoint = np.asarray(view)
-        art.raw_depth = raw_depth.cpu().numpy()
+        art.raw_depth = raw
         art.depth = depth_img
-        art.mask = m1.cpu().numpy()
+        art.mask = h2 if inpainter == "DDNM" else h1
         return art
 
     # ------------------------------------------------------------------

@@ -26,6 +26,7 @@ class ScaleAdapter:
     def __init__(self, cfg, rembg=None, image23d=None):
         self.cfg = cfg
         # backends the caller passes in stay the caller's to free
+        self.owns_rembg = rembg is None
         self.owns_image23d = image23d is None
         self.rembg = rembg or get_rembg(cfg.rembg_model, cfg)
         self.image23d = image23d or get_image23d(cfg.generative_model, cfg)

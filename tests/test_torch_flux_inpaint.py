@@ -72,7 +72,8 @@ def test_depth_prompting_paints_with_flux_per_object():
     """DepthPrompting(inpainter="flux").get_depth: the same hole mask as
     the reference's, and the port's raw depth painted by its FLUX
     inpainter as the reference's inpainter paints that raw depth (bf16
-    bound), with the known pixels kept; DDNM and cv2 still raise."""
+    bound), with the known pixels kept; DDNM and cv2 build and paint,
+    keeping the known pixels."""
     from genpc_tpu.pipeline.artifacts import ObjectArtifacts as JArt
     from genpc_tpu.pipeline.depth_prompting import DepthPrompting as JDP
     from genpc_tpu_torch.io.synthetic_data import make_object
@@ -106,10 +107,19 @@ def test_depth_prompting_paints_with_flux_per_object():
                               prompt="complete the depth map. ")
     assert np.abs(at.depth - ref).max() <= fr.IMAGE_TOL["bf16"]
     for name in ("DDNM", "cv2"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP: other inpainters"):
-            TDP(tconfig.load_config(device="cpu", **dict(kw,
-                                                           inpainter=name)))
+        dp = TDP(tconfig.load_config(device="cpu", **dict(kw,
+                                                          inpainter=name)))
+        if name == "DDNM":
+            dp.inpainter.steps = 2
+        art = dp.get_depth(TArt("01184", xyz, rgb))
+        assert art.depth.shape == (3, fr.SIZE, fr.SIZE)
+        assert np.isfinite(art.depth).all()
+        known = art.mask.max(axis=0) < 0.5
+        assert known.any() and (~known).any()
+        # DDNM maps the known pixels to [-1, 1] and back; cv2 takes them
+        # through uint8
+        tol = 1e-6 if name == "DDNM" else 1.0 / 255
+        assert np.abs(art.depth - art.raw_depth)[:, known].max() <= tol
 
 
 #: test_torch_dit_depth.py's tiny run_batched config, with FLUX for both

@@ -265,6 +265,8 @@ def test_import_leaves_jax_out():
         "        'models.controlnet_depth', 'models.weights',\n"
         "        'models.lrm', 'models.graphs', 'models.backends',\n"
         "        'models.dit', 'models.qwen_vl', 'models.dit_depth',\n"
+        "        'models.birefnet', 'models.rmbg', 'models.trellis',\n"
+        "        'models.sf3d', 'models.ddnm', 'render.inpaint',\n"
         "        'io.glb', 'ops.marching']\n"
         "missing = [n for n in need if 'genpc_tpu_torch.' + n\n"
         "           not in sys.modules]\n"
