@@ -118,17 +118,18 @@ Phases (any failure exits non-zero; nothing is caught):
      (within GEN_IMAGE_TOL, the known pixels exact) and
      T5PromptEncoder.encode (within T5_TOL); the parameter counts on the
      meta device against the reference's; then run_batched on the
-     registration path over the 13 objects with the reference's
-     full-size FLUX deployment at its defaults (FLUX: the FLUX inpainter
-     paints stage 1's depths at res², 30 steps each, and is freed;
-     FLUX.1-Depth-dev generates the 13 images at 512² in one chunk, 30
+     registration path over the first FLUX_OBJECTS objects with the
+     reference's full-size FLUX deployment at its defaults (FLUX: the FLUX
+     inpainter paints stage 1's depths at res², 30 steps each, and is
+     freed; FLUX.1-Depth-dev generates the images at 512² in one chunk, 30
      steps, guidance 10.0; int4 MMDiT and int4 T5-XXL in both): a
      warm-up and a timed pass, the painted depths and the images
      bitwise equal between them, the spans of both backends, each
      sampler step's time (CUDA events: the first, then the replays) and
      each paint's, the weight bytes, the pass's peak memory and the
      memory after each release(), CD/EMD and the K1-K5 launches; then
-     one sampler step over 13 objects of the FLUX MMDiT in bf16 and int8
+     one sampler step over FLUX_OBJECTS objects of the FLUX MMDiT in bf16
+     and int8
      and of the Qwen MMDiT in int4, each as a graph replay, with its
      FLOPs over its time against the bf16 peak, its peak memory and its
      weight bytes.
@@ -161,13 +162,39 @@ Phases (any failure exits non-zero; nothing is caught):
      volume (tens of seconds a pass); the marching now runs on the card
      (bitwise equal to the host's, held in this phase), and one scan
      keeps the whole script within its time limit.
+ 10. the multi-device path (one process drives every shard,
+     genpc_tpu_torch/parallel/mesh.py) and the last toolkit modules:
+     run_batched over the 13 objects with cfg.mesh_shape, the aligned
+     path at dp = 4 (padded to 16) and the registration path at dp = 2
+     (padded to 14), every shard on cuda:0 (and, on a machine with two or
+     more cards, the registration path over cuda:0 and cuda:1): one pass
+     each, its launches counted under mesh_aligned / mesh_registration,
+     each object's CD×100 / EMD×100 within MESH_TOL of phase 4's unsharded
+     pass (max |d| and bitwise equality printed); make_mesh and its
+     error; evaluate_pair at 16,384 points with sp = 4 and
+     sharded_chamfer_l1 at 16,384 × 16,384 against the unsharded chamfer
+     (1e-5); the tp = 2 tiny MMDiT forward against the unsharded one
+     (1e-5); batched_pose_step at dp = 4 over 8 objects, card against
+     host; the footprint-scatter renderer at the pose size (224², N =
+     2,048, footprint 3) card against host, its deterministic sums
+     repeating bitwise, its times against the slots renderer's K4/K5; and
+     card against host for apml_loss, eval_sh, the morphology, edge and
+     bilateral filters and SSIM at 1024², densify and estimate_normals at
+     16,384 points and poisson_reconstruct at 96³.  Phase 3 checks the
+     kernels at the mesh passes' shard classes (K1/K3 at B = 4 and 7, K2
+     at 4 and 7 clouds, K4/K5 at R = 28, K1 at a shard of the sp = 4
+     chamfer).
 
 Cut for the time limit (1,200 s, the kernels' build included), when
 phase 8 came: config 4 runs over CONFIG4_OBJECTS = 1 object (was 3), the
 Waymo passes over LIDAR_SCANS = 4 scans a category (was 8), and the
 image-to-3D pass over IM_OBJECTS = 2 objects (was 3), phase 3 checking
 the kernels at the launch classes these give.  No path was dropped and
-no kernel check weakened.  Phase 9 came with no further cut.
+no kernel check weakened.  Phase 9 came with no further cut.  When
+phase 10 came (1,132 s in all): the FLUX pass runs over FLUX_OBJECTS =
+7 objects (was 13; its launch classes are then those of phase 10's
+registration shards, plus its symmetry sweep's and fusion's, held in
+phase 3) and the per-object pass over PER_OBJECT_FLAGS = 2 (was 3).
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the batched registration pass, and by path); the last line
@@ -328,11 +355,29 @@ K1_SHAPES = [
     # refine and pose classes at one object)
     ("uhd_c5", (1, 65536, 19612), 0),
     ("holdout_c5", (1, 935, 19612), 0),
+    # the mesh passes of phase 10 (the dp shards: 4 of the aligned pass's
+    # 16 objects, 7 of the registration pass's 14; the symmetry sweeps run
+    # over the 13 real objects): the metric and the registration classes
+    # at a shard's B, and a shard of the sp = 4 chamfer
+    ("metric_dp4", (4, 16384, 16384), 0),
+    ("metric_dp2", (7, 16384, 16384), 0),
+    ("fine_dp2", (250 * 7, 2048, 2048), 7),
+    ("icp_dp2", (11 * 7, 2048, 2048), 7),
+    ("refine_dp2", (7, 2048, 2048), 0),
+    ("pose_dp2_512", (28, 512, 512), 7),
+    ("pose_dp2_2048", (28, 2048, 2048), 7),
+    ("sp4", (1, 4096, 16384), 0),
+    # the FLUX pass over FLUX_OBJECTS = 7 objects: its symmetry sweeps (its
+    # other classes are the registration shards' above)
+    ("sweep_7", (312 * 7, 4096, 4096), 7),
+    ("sweep_fine_7", (117 * 7, 4096, 4096), 7),
 ]
 K3_SHAPE = (13, 16384, 16384)
 #: K3 for one object (the per-object metric) and for the image-to-3D pass
 K3_SHAPE_1 = (1, 16384, 16384)
 K3_SHAPE_IM = (IM_OBJECTS, 16384, 16384)
+#: K3 at the dp shards of phase 10's mesh passes
+K3_SHAPES_DP = ((4, 16384, 16384), (7, 16384, 16384))
 
 
 def k1_inputs(dev, shape, shared, seed=0):
@@ -532,12 +577,33 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
     # the fusion of the FLUX pass (phase 8): clouds of up to 140,394
     # points, from their own draw
     rf = np.random.default_rng(seed + 3)
-    f_fusion = 140394 - rf.integers(0, 32768, 13)
+    f_fusion = 140394 - rf.integers(0, 32768, FLUX_OBJECTS)
     f_fusion[0] = 140394
     shapes["fusion_flux"] = (f_fusion.tolist(), 20000)
     # config 5's fusion over one scan (phase 9): its partial with the
     # 163,840 points sampled from its TRELLIS mesh
     shapes["fusion_c5"] = ([226852], 20000)
+    # the dp shards of phase 10's mesh passes (4 objects a shard on the
+    # aligned path, 7 on the registration path): stage 1, the metric's GT
+    # and prediction sides, the fusion and the pose subsample; from their
+    # own draw.  One plain run each, timed by events (the plain version
+    # takes seconds at these shapes), and no half-cluster timing.
+    rm = np.random.default_rng(seed + 4)
+    for b_dp in (4, 7):
+        m_pred = 19765 - rm.integers(0, 4000, b_dp)
+        m_pred[0] = 19765
+        m_fus = fusion[1] - rm.integers(0, 32768, b_dp)
+        m_fus[0] = fusion[1]
+        shapes.update({f"stage1_dp{b_dp}": ([65536] * b_dp, 10000),
+                       f"metric_dp{b_dp}": ([163840] * b_dp, 16384),
+                       f"metric_pred_dp{b_dp}": (m_pred.tolist(), 16384),
+                       f"fusion_dp{b_dp}": (m_fus.tolist(), 20000)})
+    shapes["pose_dp7"] = ([2048] * 7, 512)
+    # the aligned path's fusion over a dp = 4 shard: clouds of up to
+    # 126,458 points (phase 4's aligned pass)
+    m_al = 126458 - rm.integers(0, 32768, 4)
+    m_al[0] = 126458
+    shapes["fusion_aligned_dp4"] = (m_al.tolist(), 20000)
     out = {}
     for name, (sizes, k) in shapes.items():
         if sizes is None:
@@ -551,8 +617,14 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
         plan = fps_plan(n)
         active = active_clusters(dev.index or 0, plan["cluster"],
                                  plan["ppt"])
+        quick = "_dp" in name
         ik = fps_batched(p, k)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         ip = fps_batched_plain(p, k)
+        end.record()
         torch.cuda.synchronize()
         exact = torch.equal(ik, ip)
         rows = torch.arange(b, device=dev)[:, None]
@@ -565,7 +637,8 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
         if not exact:
             fail(f"K2 {name}: sequence differs from the plain version")
         ms = cuda_ms(lambda: fps_batched(p, k))
-        plain_ms = cuda_ms(lambda: fps_batched_plain(p, k))
+        plain_ms = start.elapsed_time(end) if quick else \
+            cuda_ms(lambda: fps_batched_plain(p, k))
         # each of the k-1 picks updates every real point's distance (8
         # flops); the real points read once, the indices written once (at
         # the PED shape the 400 unique points are the real work)
@@ -578,11 +651,12 @@ def check_k2(dev, small=(2, 1000, 256), metric=(13, 163840, 16384),
         # objects on the card at once, but streams part of each slice
         half = max(1, plan["cluster"] // 2)
         alt = fps_plan(n, half)
-        alt_ms = cuda_ms(lambda: _launch(p, k, 0, alt))
-        log(f"K2 time {name} at C {half} (slice {alt['slice']}, "
-            f"{alt['on_chip']} on-chip, "
-            f"{active_clusters(dev.index or 0, half, alt['ppt'])} clusters "
-            f"active at once): {alt_ms:.3f} ms")
+        if not quick:
+            alt_ms = cuda_ms(lambda: _launch(p, k, 0, alt))
+            log(f"K2 time {name} at C {half} (slice {alt['slice']}, "
+                f"{alt['on_chip']} on-chip, "
+                f"{active_clusters(dev.index or 0, half, alt['ppt'])} "
+                f"clusters active at once): {alt_ms:.3f} ms")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": None, **bd}
         del p, ik, ip
@@ -726,12 +800,14 @@ def check_k4_k5(dev, shapes=((224, 2048, 13), (112, 512, 13),
                             (224, 2048, 1), (112, 512, 1),
                             (224, 2048, LIDAR_SCANS),
                             (112, 512, LIDAR_SCANS),
-                            (224, 2048, IM_OBJECTS), (112, 512, IM_OBJECTS)),
+                            (224, 2048, IM_OBJECTS), (112, 512, IM_OBJECTS),
+                            (224, 2048, 7), (112, 512, 7)),
                 seed=4):
     """K4 (splat forward) and K5 (splat backward, per point) against their
     plain versions at the pose path's shapes (R = 52 for 13 objects, R = 4
     for one, R = 4 LIDAR_SCANS for the Waymo scans, R = 4 IM_OBJECTS for the
-    image-to-3D pass; S = 6, f = 2, gamma 1e-2):
+    image-to-3D pass, R = 28 for a dp shard of phase 10's registration
+    mesh pass; S = 6, f = 2, gamma 1e-2):
     bit-equal on the table _build_table returns (a view with render
     stride size + 1), on its
     contiguous copy and on a table with every entry present, and bitwise
@@ -859,7 +935,9 @@ PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
                 "qwen": tuple(k[0] for k in KERNELS),
                 "config4": tuple(k[0] for k in KERNELS),
                 "flux": tuple(k[0] for k in KERNELS),
-                "config5": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd")}
+                "config5": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
+                "mesh_aligned": ("chamfer_nn", "fps", "emd_bid"),
+                "mesh_registration": tuple(k[0] for k in KERNELS)}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -1045,8 +1123,8 @@ def small_input_check(tmp: str, seed: int) -> None:
 LIDAR = dict(REDWOOD, trust_aligned_completion=False, point_size=2,
              mask_pixel_rate=2, removal_radius=100, edge_point_size=1)
 LIDAR_PED = dict(LIDAR, point_size=3, removal_radius=800)
-#: objects of the per-object Redwood pass
-PER_OBJECT_FLAGS = 3
+#: objects of the per-object Redwood pass (cut from 3 when phase 10 came)
+PER_OBJECT_FLAGS = 2
 #: the per-object tiny config: TINY with registration, small pose inputs
 #: on both sides, and more fused points than the metric samples (the
 #: per-object metric, unlike the batched one, does not pad a fused cloud
@@ -2247,8 +2325,12 @@ def drive_config4(root: str, flags, counters) -> dict:
 #: images, the FLUX inpainter for stage 1's depths) at its quantisation
 #: defaults: quant_bits and tower_quant_bits unset, i.e. int4 MMDiT and
 #: int4 T5-XXL in both backends
+#: objects of the FLUX pass (cut from 13 for the time limit when phase
+#: 10 came)
+FLUX_OBJECTS = 7
 FLUX = dict(REDWOOD, trust_aligned_completion=False, control_model="flux",
-            inpainter="flux", model_size="full", generate_obj_batch=13)
+            inpainter="flux", model_size="full",
+            generate_obj_batch=FLUX_OBJECTS)
 #: the reference's parameter counts (jax.eval_shape of its full presets,
 #: unquantised; tests/test_torch_flux.py and test_torch_t5.py hold the
 #: port's to them)
@@ -2358,14 +2440,14 @@ def drive_flux(root: str, flags, counters) -> dict:
     release = batched_runner._release_backend
     passes = []     # each pass's walls, memory, weight bytes, spans, outputs
 
-    def rec_stage1(cfg, arts, viewpoints, core=None, dp=None):
+    def rec_stage1(cfg, arts, viewpoints, core=None, dp=None, mesh=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         rec = dict(base=torch.cuda.memory_allocated(), after={}, weights={},
                    spans={})
         passes.append(rec)
         t0 = time.time()
-        stage1(cfg, arts, viewpoints, core=core, dp=dp)
+        stage1(cfg, arts, viewpoints, core=core, dp=dp, mesh=mesh)
         torch.cuda.synchronize()
         rec["stage1_wall"] = time.time() - t0
         rec["weights"]["inpainter"] = _backend_bytes(dp.inpainter.backend)
@@ -2811,12 +2893,12 @@ def drive_config5(root: str, flags, counters) -> dict:
     release = batched_runner._release_backend
     passes = []
 
-    def rec_stage1(cfg, arts, viewpoints, core=None, dp=None):
+    def rec_stage1(cfg, arts, viewpoints, core=None, dp=None, mesh=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         passes.append(dict(base=torch.cuda.memory_allocated(), after={},
                            spans={}, flows=[], sdf=[], t0=time.time()))
-        stage1(cfg, arts, viewpoints, core=core, dp=dp)
+        stage1(cfg, arts, viewpoints, core=core, dp=dp, mesh=mesh)
 
     def rec_gen(cfg, dp, arts):
         gen(cfg, dp, arts)
@@ -3114,6 +3196,290 @@ def drive_ddnm_full(run: dict) -> None:
         fail("ddnm: release() left its memory allocated")
 
 
+# ----------------------------------------------------------- phase 10 ---
+
+#: the dp size of each mesh pass over the 13 objects: the aligned path at
+#: dp = 4 (padded to 16), the registration path at dp = 2 (padded to 14),
+#: every shard on cuda:0 (a second card, where there is one, in
+#: drive_mesh_cards)
+MESH_DP = {"aligned": 4, "registration": 2}
+#: a mesh pass's per-object CD×100 and EMD×100 against phase 4's
+#: unsharded pass: each shard's launches see fewer objects, so sums may
+#: take another order
+MESH_TOL = 1e-3
+#: the pose renderer's size (224², N = 2,048) and the scatter's footprint
+SCATTER_SIZE = (224, 2048, 3)
+
+
+def drive_mesh(path: str, root: str, flags, counters, unsharded: dict,
+               devices=None) -> dict:
+    """run_batched of one path with cfg.mesh_shape {'dp': k}: one pass,
+    its launches counted; each object's CD×100 / EMD×100 against the
+    unsharded pass of phase 4."""
+    from genpc_tpu_torch.config import load_config
+    from genpc_tpu_torch.parallel import batched_runner
+    k = MESH_DP[path]
+    devices = devices or ["cuda:0"] * k
+    label = f"mesh_{path}"
+    cfg = load_config(device="cuda", mesh_shape={"dp": k},
+                      mesh_devices=devices, **dict(
+                          REDWOOD, trust_aligned_completion=(path ==
+                                                             "aligned")))
+    timings = {}
+    results, wall, launches = _counted(
+        f"{label} (dp={k} over {','.join(devices)})", counters,
+        lambda: batched_runner.run_batched(cfg, flags, root,
+                                           timings=timings))
+    pad = (-len(flags)) % k
+    log(f"{label}: one pass over {len(flags)} objects padded to "
+        f"{len(flags) + pad}, {wall:.3f} s ({len(flags) / wall * 60:.3f} "
+        f"objects/min; the unsharded timed pass {unsharded['wall']:.3f} s); "
+        f"stage walls (s): " + json.dumps({n: round(v, 4)
+                                          for n, v in timings.items()}))
+    if set(results) != set(flags):
+        fail(f"{label}: the results hold {sorted(results)}")
+    worst, bitwise = 0.0, True
+    for f in flags:
+        a, b = unsharded["results"][f], results[f]
+        d = max(abs(a[m] - b[m]) * 100 for m in ("cd", "emd"))
+        worst = max(worst, d)
+        bitwise &= a == b
+        log(f"  {f}: CD x100 {b['cd'] * 100:.6f} / EMD x100 "
+            f"{b['emd'] * 100:.6f} (unsharded {a['cd'] * 100:.6f} / "
+            f"{a['emd'] * 100:.6f})")
+    log(f"{label}: max |d| of CD x100 and EMD x100 against the unsharded "
+        f"pass {worst:.3e}; bitwise equal: {bitwise}")
+    if worst > MESH_TOL:
+        fail(f"{label}: {worst:.3e} from the unsharded pass (> {MESH_TOL})")
+    return {"results": results, "launches": launches, "wall": wall,
+            "timings": timings, "max_abs_d": worst, "bitwise": bitwise}
+
+
+def mesh_checks(root: str, flags) -> None:
+    """The mesh API on the card: make_mesh over a repeated cuda:0 and its
+    error; evaluate_pair at 16,384 points with sp = 4 against the
+    unsharded CD (1e-5); sharded_chamfer_l1 at 16,384 × 16,384 with sp =
+    4 (its time against the unsharded chamfer); the tp = 2 tiny MMDiT
+    forward (fp32 compute) against the unsharded one (1e-5); one
+    batched_pose_step at dp = 4 over 8 objects, card against host
+    (losses and parameters within 1e-4)."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.io.ply import load_xyz
+    from genpc_tpu_torch.metrics.losses import chamfer_l1
+    from genpc_tpu_torch.metrics.metric import evaluate_pair
+    from genpc_tpu_torch.models.dit import DiTConfig, MMDiT
+    from genpc_tpu_torch.models.weights import materialize
+    from genpc_tpu_torch.parallel import mesh as pm
+    n_dev = torch.cuda.device_count()
+    mesh = pm.make_mesh({"dp": 4}, ["cuda:0"] * 4)
+    log(f"mesh: make_mesh({{'dp': 4}}) over cuda:0 x 4: axes "
+        f"{mesh.axis_names}, shape {mesh.shape}")
+    try:
+        pm.make_mesh({"dp": n_dev + 1})
+    except ValueError as e:
+        log(f"mesh: make_mesh({{'dp': {n_dev + 1}}}) over the {n_dev} "
+            f"card(s): ValueError ({e})")
+    else:
+        fail("mesh: make_mesh did not raise on too few devices")
+
+    gt, _ = load_xyz(os.path.join(root, "GT", f"{flags[0]}.ply"))
+    pred = gt[np.random.default_rng(0).choice(len(gt), 19728,
+                                              replace=False)]
+    pred = pred + np.random.default_rng(1).normal(
+        0, 0.01, pred.shape).astype(np.float32)
+    sp = pm.make_mesh({"sp": 4}, ["cuda:0"] * 4)
+    one = evaluate_pair(pred, gt, with_emd=False, device="cuda")
+    four = evaluate_pair(pred, gt, with_emd=False, mesh=sp, device="cuda")
+    d = abs(one["cd"] - four["cd"])
+    log(f"mesh: evaluate_pair at 16,384 points, sp=4: CD {four['cd']:.9f} "
+        f"against {one['cd']:.9f} unsharded, |d| {d:.3e}")
+    if d > 1e-5:
+        fail("mesh: the sp-sharded CD leaves 1e-5 of the unsharded one")
+    r = np.random.default_rng(2)
+    x = torch.tensor(r.random((16384, 3)), dtype=torch.float32,
+                     device="cuda")
+    y = torch.tensor(r.random((16384, 3)), dtype=torch.float32,
+                     device="cuda")
+    sh = pm.sharded_chamfer_l1(x, y, sp)
+    ref = chamfer_l1(x[None], y[None])
+    ms = cuda_ms(lambda: pm.sharded_chamfer_l1(x, y, sp), reps=5)
+    ms1 = cuda_ms(lambda: chamfer_l1(x[None], y[None]), reps=5)
+    d = abs(float(sh) - float(ref))
+    log(f"mesh: sharded_chamfer_l1 16,384 x 16,384, sp=4 over one card: "
+        f"{float(sh):.9f}, |d| {d:.3e} from the unsharded chamfer; "
+        f"{ms:.3f} ms against {ms1:.3f} ms")
+    if d > 1e-5:
+        fail("mesh: sharded_chamfer_l1 leaves 1e-5 of the chamfer")
+
+    with torch.device("meta"):
+        model = MMDiT(DiTConfig.preset("tiny"))
+    materialize(model, "cuda", torch.float32, seed=0)
+    for m in model.modules():
+        if hasattr(m, "compute"):
+            m.compute = torch.float32
+    out2, n = pm.tp_sharded_dit_forward(
+        pm.make_mesh({"tp": 2}, ["cuda:0"] * 2), model=model)
+    out1, _ = pm.tp_sharded_dit_forward(
+        pm.make_mesh({"tp": 1}, ["cuda:0"]), model=model)
+    d = (out2 - out1).abs().max().item()
+    v = out1.abs().max().item()
+    log(f"mesh: tp_sharded_dit_forward tp=2 (tiny, fp32, seeded random "
+        f"weights, the reference's zero inputs): {n} layers split, max |d| "
+        f"{d:.3e} from the unsharded forward, max |v| {v:.4e}")
+    if d > 1e-5 * v or n != 40:
+        fail("mesh: the tp forward leaves 1e-5 of the unsharded one")
+
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        step, make_example, shardings = pm.batched_pose_step(
+            pm.make_mesh({"dp": 4}, [dev] * 4))
+        params, opt, comp, col, part, size = make_example(batch=8)
+        t0 = time.time()
+        p, _, loss = step(*shardings(params, opt, comp, col, part), 0.05,
+                          size)
+        outs[dev] = (torch.cat(loss).cpu(),
+                     {k: torch.cat([q[k] for q in p]).cpu() for k in p[0]})
+        log(f"mesh: batched_pose_step dp=4, batch 8 on {dev}: "
+            f"{time.time() - t0:.3f} s")
+    (lc, pc), (lh, ph) = outs["cuda:0"], outs["cpu"]
+    d = max([(lc - lh).abs().max().item()]
+            + [(pc[k] - ph[k]).abs().max().item() for k in pc])
+    log(f"mesh: batched_pose_step card against host: losses "
+        f"{[round(v, 5) for v in lc.tolist()]}, max |d| {d:.3e}")
+    if d > 1e-4 or not torch.isfinite(lc).all():
+        fail("mesh: batched_pose_step card leaves 1e-4 of host")
+
+
+def scatter_checks() -> None:
+    """The footprint-scatter renderer at the pose size (224², N = 2,048,
+    footprint 3): card against host, deterministic=True bitwise equal
+    over two calls and within 1e-5 of the float sums; its forward and
+    forward+backward times against the slots renderer (K4, K4+K5) at the
+    pose path's footprint 2."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.render.point_renderer import (RenderCamera,
+                                                       render_points)
+    res, n, f = SCATTER_SIZE
+    r = np.random.default_rng(3)
+    pts_h = torch.tensor(r.normal(size=(n, 3)) * 0.3, dtype=torch.float32)
+    cols_h = torch.tensor(r.random((n, 3)), dtype=torch.float32)
+    pts, cols = pts_h.cuda(), cols_h.cuda()
+    cam = RenderCamera.default(res)
+    img = {}
+    for det in (False, True):
+        a = render_points(pts, cols, 0.02, cam, footprint=f,
+                          deterministic=det)
+        b = render_points(pts, cols, 0.02, cam, footprint=f,
+                          deterministic=det)
+        h = render_points(pts_h, cols_h, 0.02, cam, footprint=f,
+                          deterministic=det)
+        d = (a.cpu() - h).abs().max().item()
+        img[det] = a
+        log(f"scatter {res}², N {n}, f {f}, deterministic={det}: card "
+            f"against host max |d| {d:.3e}; two card calls bitwise equal: "
+            f"{torch.equal(a, b)}")
+        if d > 1e-5:
+            fail("scatter: card leaves 1e-5 of host")
+        if det and not torch.equal(a, b):
+            fail("scatter: deterministic=True does not repeat bitwise")
+    d = (img[True] - img[False]).abs().max().item()
+    log(f"scatter: fixed-point against float sums max |d| {d:.3e}")
+    if d > 1e-5:
+        fail("scatter: deterministic sums leave 1e-5 of the float sums")
+
+    def fwd(method, fp, det=False):
+        return lambda: render_points(pts, cols, 0.02, cam, footprint=fp,
+                                     method=method, deterministic=det)
+
+    def fwd_bwd(method, fp, det=False):
+        def run():
+            p = pts.detach().requires_grad_(True)
+            render_points(p, cols, 0.02, cam, footprint=fp, method=method,
+                          deterministic=det).square().sum().backward()
+        return run
+
+    times = {f"scatter f{f} forward": cuda_ms(fwd("scatter", f), 5),
+             f"scatter f{f} forward+backward": cuda_ms(
+                 fwd_bwd("scatter", f), 5),
+             f"scatter f{f} deterministic forward+backward": cuda_ms(
+                 fwd_bwd("scatter", f, True), 5),
+             "scatter f2 forward+backward": cuda_ms(fwd_bwd("scatter", 2),
+                                                    5),
+             "slots f2 forward (table + K4)": cuda_ms(fwd("slots", 2), 5),
+             "slots f2 forward+backward (K4 + K5)": cuda_ms(
+                 fwd_bwd("slots", 2), 5)}
+    log("scatter time (one render, CUDA events): " + json.dumps(
+        {k: round(v, 4) for k, v in times.items()}))
+
+
+def toolkit_checks(root: str, flags) -> None:
+    """The toolkit modules, card against host: apml_loss, eval_sh, the
+    morphology, edge and bilateral filters and SSIM at 1024², densify
+    and estimate_normals at 16,384 points, poisson_reconstruct at 96³."""
+    import numpy as np
+    import torch
+    from genpc_tpu_torch.geometry import densify, mesh_utils, sh
+    from genpc_tpu_torch.io.ply import load_xyz
+    from genpc_tpu_torch.metrics import image_metrics
+    from genpc_tpu_torch.metrics.losses import apml_loss
+    from genpc_tpu_torch.render import image_ops
+    r = np.random.default_rng(4)
+
+    def both(name, fn, *arrays, tol=1e-5, rel=True):
+        t0 = time.time()
+        card = fn(*(torch.as_tensor(a).cuda() for a in arrays))
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        t0 = time.time()
+        host = fn(*(torch.as_tensor(a) for a in arrays))
+        t_host = time.time() - t0
+        card = card.float().cpu() if torch.is_tensor(card) \
+            else torch.as_tensor(card)
+        host = torch.as_tensor(host).float()
+        if card.shape != host.shape:
+            fail(f"toolkit {name}: card shape {tuple(card.shape)}, host "
+                 f"{tuple(host.shape)}")
+        d = (card - host).abs().max().item()
+        scale = max(host.abs().max().item(), 1.0) if rel else 1.0
+        log(f"toolkit {name}: card against host max |d| {d:.3e} (bound "
+            f"{tol * scale:.1e}); card {t_card:.3f} s, host {t_host:.3f} s")
+        if d > tol * scale:
+            fail(f"toolkit {name}: card leaves the host")
+
+    a = (r.normal(size=(2, 2048, 3)) * 0.2).astype(np.float32)
+    b = (r.normal(size=(2, 2048, 3)) * 0.2).astype(np.float32)
+    both("apml_loss [2,2048]x[2,2048]", apml_loss, a, b)
+    coeffs = r.normal(size=(16384, 3, 25)).astype(np.float32)
+    dirs = r.normal(size=(16384, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    both("eval_sh deg 4 [16384,3,25]", lambda c, d: sh.eval_sh(4, c, d),
+         coeffs, dirs)
+    mask = (r.random((1024, 1024)) < 0.3).astype(np.float32)
+    img = r.random((1024, 1024, 3)).astype(np.float32)
+    img2 = np.clip(img + r.normal(0, 0.05, img.shape), 0, 1).astype(
+        np.float32)
+    both("dilate 1024²", lambda m: image_ops.dilate(m, 2), mask, tol=0)
+    both("erode 1024²", lambda m: image_ops.erode(m, 2), mask, tol=0)
+    both("fill_hole 1024²", image_ops.fill_hole, mask, tol=0)
+    both("scharr_edges 1024²", image_ops.scharr_edges, img)
+    both("bilateral_filter 1024²", image_ops.bilateral_filter, img)
+    both("ssim 1024²", image_metrics.ssim, img, img2)
+    gt, _ = load_xyz(os.path.join(root, "GT", f"{flags[0]}.ply"))
+    pts = gt[r.choice(len(gt), 16384, replace=False)].astype(np.float32)
+    both("densify.linear_interpolation 16,384",
+         lambda p: densify.linear_interpolation(
+             p.cpu().numpy(), device=p.device)[0], pts, tol=0)
+    both("estimate_normals 16,384",
+         lambda p: mesh_utils.estimate_normals(p.cpu().numpy(),
+                                               device=p.device), pts, tol=0)
+    both("poisson_reconstruct 96³ (vertices)",
+         lambda p: mesh_utils.poisson_reconstruct(
+             p.cpu().numpy(), grid_res=96, device=p.device).vertices,
+         pts, tol=0)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "genpc_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3148,6 +3514,8 @@ def main() -> int:
               "emd_bid": check_k3(dev), **check_k4_k5(dev)}
     check_k3(dev, K3_SHAPE_1)
     check_k3(dev, K3_SHAPE_IM)
+    for shape in K3_SHAPES_DP:
+        check_k3(dev, shape)
 
     # 4. the main paths
     from genpc_tpu_torch.categories import REDWOOD_FLAGS
@@ -3204,8 +3572,8 @@ def main() -> int:
         # 8. FLUX: the inpainter and FLUX.1-Depth-dev at their int4 defaults
         flux_card_vs_host()
         flux_params()
-        runs["flux"] = drive_flux(root, flags, counters)
-        flux_step_flops(len(flags), runs["flux"]["step_ms"])
+        runs["flux"] = drive_flux(root, flags[:FLUX_OBJECTS], counters)
+        flux_step_flops(FLUX_OBJECTS, runs["flux"]["step_ms"])
         # 9. BASELINE config 5 (FLUX -> RMBG-2.0 -> TRELLIS) and the other
         # modules of its slice (SF3D, DDNM, cv2)
         config5_card_vs_host(tmp)
@@ -3215,6 +3583,17 @@ def main() -> int:
         config5_step_flops()
         drive_sf3d_full(runs["config5"])
         drive_ddnm_full(runs["config5"])
+        # 10. the multi-device path and the toolkit modules
+        for name in ("aligned", "registration"):
+            runs[f"mesh_{name}"] = drive_mesh(name, root, flags, counters,
+                                              runs[name])
+        if torch.cuda.device_count() >= 2:
+            runs["mesh_registration_cards"] = drive_mesh(
+                "registration", root, flags, counters, runs["registration"],
+                devices=["cuda:0", "cuda:1"])
+        mesh_checks(root, flags)
+        scatter_checks()
+        toolkit_checks(root, flags)
         if "--profile" in sys.argv[1:]:
             profile_pass(root, flags)
     if not runs["registration"]["repeat"]:

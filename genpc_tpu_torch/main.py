@@ -9,7 +9,9 @@ completion to its partial (pose optimisation, coarse and fine ICP
 sweeps, final refine), the reference's headline path; ``--aligned``
 (``trust_aligned_completion=True``) lets completions their backend
 declares aligned skip registration.  Work runs on ``cfg.device``
-(``--device``, the card by default).  With ``save`` set (the config
+(``--device``, the card by default), or over a device mesh (``--mesh``,
+``cfg.mesh_shape``: ``dp`` splits the batched runner's objects, ``sp``
+the per-object metric's chamfer).  With ``save`` set (the config
 default) the workspace files are written under ``--output``.  The
 generation backends are the synthetic ones unless ``--control-model``
 asks for a depth generator (``controlnet`` or ``adapter``: SDXL;
@@ -34,6 +36,8 @@ Usage:
       --generative-model instantmesh --model-size full
   python -m genpc_tpu_torch.main --data-dir DATA --batched \
       --control-model flux --model-size full [--quant-bits 8]
+  python -m genpc_tpu_torch.main --data-dir DATA --mesh dp=4 \
+      [--mesh-devices cuda:0,cuda:0,cuda:0,cuda:0]
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from genpc_tpu_torch.config import Config, load_config
 from genpc_tpu_torch.io.ply import load_xyz
 from genpc_tpu_torch.metrics.frame_fixes import apply_frame_fix
 from genpc_tpu_torch.metrics.metric import evaluate_pair, summarize
+from genpc_tpu_torch.parallel.mesh import get_mesh
 from genpc_tpu_torch.pipeline.artifacts import input_artifacts
 from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import reg
@@ -64,7 +69,8 @@ def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
     """Per-object pipeline over flags; returns {flag: {'cd', 'emd'}} for
     the objects that finished and have a GT.  Spans (load, stage1,
     stage2, stage3, metric) go to ``timer``."""
-    device = resolve_device(cfg.device, cfg.get("mesh_shape"))
+    mesh = get_mesh(cfg)
+    device = resolve_device(cfg.device, mesh)
     timer = timer or StageTimer(device)
     gt_dir = gt_dir or os.path.join(data_dir, "GT")
     dp = DepthPrompting(cfg)
@@ -104,7 +110,8 @@ def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
                                       num_points=int(cfg.metric_points),
                                       emd_eps=float(cfg.emd_eps),
                                       emd_iters=int(cfg.emd_iters),
-                                      with_emd=with_emd, device=device)
+                                      with_emd=with_emd, mesh=mesh,
+                                      device=device)
                 emd_txt = f", EMD: {m['emd']*100:.3f}" if "emd" in m else ""
                 print(f"Flag: {flag}, CD: {m['cd']*100:.3f}{emd_txt}")
                 results[flag] = m
@@ -153,8 +160,14 @@ def main(argv=None):
                     help="object-batched runner (each stage over the "
                          "whole set)")
     ap.add_argument("--mesh", default=None,
-                    help="device mesh for the batched runner, e.g. dp=8 "
-                         "(implies --batched; not ported, raises)")
+                    help="device mesh, e.g. dp=8 or sp=4: dp splits the "
+                         "objects of the batched runner (and implies "
+                         "--batched), sp the per-object metric's chamfer; "
+                         "the mesh takes every CUDA device, or "
+                         "--mesh-devices")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="the mesh's devices in order, repeats allowed, "
+                         "e.g. cuda:0,cuda:0,cuda:0,cuda:0")
     ap.add_argument("--timings", action="store_true",
                     help="print the per-stage timing table")
     ap.add_argument("--profile", default=None,
@@ -190,11 +203,13 @@ def main(argv=None):
     if args.mesh:
         cfg.mesh_shape = {k: int(v) for k, v in
                           (kv.split("=") for kv in args.mesh.split(","))}
-        args.batched = True
+        args.batched = args.batched or "dp" in cfg.mesh_shape
+    if args.mesh_devices:
+        cfg.mesh_devices = args.mesh_devices.split(",")
     flags = args.flags or [f for f in REDWOOD_FLAGS if os.path.exists(
         os.path.join(args.data_dir, f"{f}.ply"))]
 
-    timer = StageTimer(resolve_device(cfg.device))
+    timer = StageTimer(resolve_device(cfg.device, get_mesh(cfg)))
     start = time.time()
     with trace(args.profile):
         if args.batched:

@@ -29,6 +29,7 @@ import numpy as np
 from genpc_tpu_torch.config import load_config
 from genpc_tpu_torch.io.ply import load_xyz
 from genpc_tpu_torch.metrics.metric import uhd
+from genpc_tpu_torch.parallel.mesh import get_mesh
 from genpc_tpu_torch.pipeline.artifacts import Workspace, input_artifacts
 from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import reg
@@ -46,8 +47,9 @@ def list_scans(data_dir: str, category: str, limit: Optional[int] = None
 def run_lidar(cfg, flags: List[str], data_dir: str, category: str,
               stage: str = "all"):
     """Per-object LiDAR pipeline; returns {flag: UHD} of the objects that
-    ran stages 2-3."""
-    device = resolve_device(cfg.device)
+    ran stages 2-3.  With cfg.mesh_shape the work runs on the mesh's
+    first device."""
+    device = resolve_device(cfg.device, get_mesh(cfg))
     n_in = int(cfg.get("input_points", 65536))
     ws = Workspace(cfg.output_path, cfg.generative_model)
     results = {}

@@ -8,6 +8,9 @@ utils/loss_util.py:8-53).
                 gradient equals the reference's custom VJP, whose d2 term
                 carries no cotangent)
   emd_loss    = mean sqrt(auction_dist), eps=0.005, iters=50
+  apml_loss   = soft point matching: a coupling from row and column
+                softmaxes of the negative distances, against the squared
+                distances (differentiable in both clouds)
 
 All accept [N,3] or [B,N,3] and are differentiable (chamfer through
 ``ops/chamfer``; EMD with respect to the first argument only).
@@ -52,9 +55,30 @@ def emd_loss(p1, p2, eps: float = 0.005, iters: int = 50):
     return torch.sqrt(torch.clamp_min(d, 0.0)).mean()
 
 
+def apml_loss(p1, p2, temperature: float = 0.05):
+    """Approximate point-matching loss (reference: losses.py:50-76; APML,
+    arXiv:2512.19743): the geometric mean of the row and column softmaxes
+    of -d²/temperature (one balanced coupling step), normalised to sum 1
+    per pair, contracted against d² and averaged over the batch.  Dense
+    [B,N,M] in the direct form |a|² + |b|² - 2ab, as the reference."""
+    a = torch.as_tensor(p1, dtype=torch.float32)
+    b = torch.as_tensor(p2, dtype=torch.float32, device=a.device)
+    if a.ndim == 2:
+        a, b = a[None], b[None]
+    cross = torch.einsum("bnd,bmd->bnm", a, b)
+    d2 = torch.clamp_min(a.square().sum(-1)[..., :, None]
+                         + b.square().sum(-1)[..., None, :] - 2 * cross, 0.0)
+    logits = -d2 / temperature
+    coupling = torch.exp(0.5 * (torch.log_softmax(logits, -1)
+                                + torch.log_softmax(logits, -2)))
+    coupling = coupling / torch.clamp_min(
+        coupling.sum((-2, -1), keepdim=True), 1e-12)
+    return (coupling * d2).sum((-2, -1)).mean()
+
+
 class CompletionLoss:
     """Drop-in for the reference's Completionloss(loss_func=...): 'cd_l1',
-    'cd_l2' or 'emd' (``apml_loss`` is not ported)."""
+    'cd_l2' or 'emd'."""
 
     def __init__(self, loss_func: str = "cd_l1",
                  emd_eps: float = 0.005, emd_iters: int = 50):

@@ -15,9 +15,10 @@
   * ``summarize`` — the per-category print and averages of main.py.
 
 Inputs are numpy; ``device`` is where the work runs (the card unless
-the caller asks for the CPU).  Not ported: the reference's
-sequence-parallel chamfer over a device mesh with an ``sp`` axis; it
-raises.
+the caller asks for the CPU).  With a device mesh that has an ``sp``
+axis, ``evaluate_pair``'s chamfer splits both clouds' rows over it
+(``parallel.mesh.sharded_chamfer_l1``); the EMD stays on ``device``, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -45,14 +46,16 @@ def evaluate_pair(pred: np.ndarray, gt: np.ndarray, num_points: int = 16384,
                   emd_eps: float = 0.005, emd_iters: int = 50,
                   with_emd: bool = True, mesh=None,
                   device: torch.device | str = "cuda") -> Dict[str, float]:
-    """FPS both to num_points, return {'cd': ..., 'emd': ...} (raw scale)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_pair over a device mesh is not ported (ROADMAP: "
-            "multi-GPU data parallelism)")
+    """FPS both to num_points, return {'cd': ..., 'emd': ...} (raw scale).
+    With a mesh that has an 'sp' axis the chamfer is the sp-sharded one
+    (reference: metric.py:44-49)."""
     p, _ = farthest_point_sample(_t(pred, device), num_points)
     g, _ = farthest_point_sample(_t(gt, device), num_points)
-    out = {"cd": float(CompletionLoss("cd_l1").get_loss(p, g))}
+    if mesh is not None and "sp" in mesh.axis_names:
+        from genpc_tpu_torch.parallel.mesh import sharded_chamfer_l1
+        out = {"cd": float(sharded_chamfer_l1(p, g, mesh))}
+    else:
+        out = {"cd": float(CompletionLoss("cd_l1").get_loss(p, g))}
     if with_emd:
         out["emd"] = float(CompletionLoss("emd", emd_eps=emd_eps,
                                           emd_iters=emd_iters).get_loss(p, g))

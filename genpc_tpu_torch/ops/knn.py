@@ -2,8 +2,10 @@
 
 Row-tiled plain torch: each tile's direct-form squared distances
 (dx²+dy²)+dz² go through ``torch.topk``, so no N×M matrix is ever held.
-``lax.top_k`` returns equal values lower index first, and ``torch.topk``
-promises no order among ties, so the k results are re-sorted stably by
+``lax.top_k`` takes equal values lower index first, also at the k-th
+place, and ``torch.topk`` promises neither which of several equal k-th
+values it takes nor their order: the k-th value's lowest-index copies
+are taken by a running count, and the k results are sorted stably by
 (value, index).
 """
 
@@ -28,11 +30,17 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int
     dists, idxs = [], []
     for r0 in range(0, n, rows):
         d = _sq_dist(q[r0:r0 + rows], r)
-        v, i = torch.topk(d, k, dim=1, largest=False, sorted=True)
-        # ties: lower index first, as lax.top_k orders them
-        i, perm = i.sort(dim=1)
-        v = v.gather(1, perm)
-        v, perm = v.sort(dim=1, stable=True)
+        # the k smallest with lax.top_k's ties, lower index first: every
+        # value below the k-th, then the lowest-index copies of the k-th
+        # (torch.topk may pick any of them)
+        vk = torch.topk(d, k, dim=1, largest=False, sorted=True)[0][:, -1:]
+        below = d < vk
+        at = d == vk
+        take = below | (at & (torch.cumsum(at, 1)
+                              <= k - below.sum(1, keepdim=True)))
+        i = torch.topk(take.to(torch.float32), k, dim=1).indices.sort(
+            dim=1)[0]
+        v, perm = torch.gather(d, 1, i).sort(dim=1, stable=True)
         dists.append(v)
         idxs.append(i.gather(1, perm).to(torch.int32))
     return torch.cat(dists), torch.cat(idxs)

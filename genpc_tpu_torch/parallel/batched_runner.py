@@ -29,12 +29,21 @@ reference.
 
 A mesh-producing image-to-3D backend's completion (InstantMesh) is
 sampled on its surface, ``glb_sample_points`` points (io/glb), before
-registration.  Not ported: device meshes (``cfg.mesh_shape``) raise
-``NotImplementedError``.
+registration.
+
+With a device mesh (``cfg.mesh_shape``, ``parallel.mesh.get_mesh``) the
+object axis is split over ``dp``: both runners pad the batch to a
+multiple of dp with copies of the last object (whose results are
+dropped), stage 1, every registration step, the fusion and the metric's
+FPS, chamfer and EMD (or the UHD) run shard by shard on the dp devices,
+each step's shards enqueued before the host reads any of them
+(``mesh.run_sharded``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import gc
 import math
 import os
@@ -52,7 +61,11 @@ from genpc_tpu_torch.ops.chamfer import _nn, chamfer_nn, nearest_neighbor
 from genpc_tpu_torch.ops.emd import emd_auction
 from genpc_tpu_torch.ops.fps import pad_repeat
 from genpc_tpu_torch.ops.fps_kernel import fps_batched
+from genpc_tpu_torch.ops.rowsum import mean_dims
 from genpc_tpu_torch.ops.voxel import voxel_down_sample
+from genpc_tpu_torch.parallel.mesh import (dp_devices, dp_sharded, dp_size,
+                                           gather, get_mesh, run_sharded,
+                                           split)
 from genpc_tpu_torch.pipeline.artifacts import (ObjectArtifacts,
                                                 input_artifacts)
 from genpc_tpu_torch.pipeline.depth_prompting import (
@@ -86,13 +99,15 @@ def batched_fps_gather(pts: torch.Tensor, num_points: int = 16384
 def batched_metric_sampled(p: torch.Tensor, g: torch.Tensor,
                            emd_eps: float = 0.005, emd_iters: int = 50,
                            with_emd: bool = True):
-    """Already-FPS-sampled pred/gt [B,n,3] -> (cd [B], emd [B])."""
+    """Already-FPS-sampled pred/gt [B,n,3] -> (cd [B], emd [B]); each
+    object's means summed alone on the card (``ops/rowsum``), so a dp
+    shard scores an object as the whole batch does."""
     d1, d2, _, _ = chamfer_nn(p, g)
-    cd = (torch.sqrt(torch.clamp_min(d1, 0)).mean(1)
-          + torch.sqrt(torch.clamp_min(d2, 0)).mean(1)) / 2
+    cd = (mean_dims(torch.sqrt(torch.clamp_min(d1, 0)), (1,))
+          + mean_dims(torch.sqrt(torch.clamp_min(d2, 0)), (1,))) / 2
     if with_emd:
         de, _ = emd_auction(p, g, eps=emd_eps, iters=emd_iters)
-        emd = torch.sqrt(torch.clamp_min(de, 0)).mean(1)
+        emd = mean_dims(torch.sqrt(torch.clamp_min(de, 0)), (1,))
     else:
         emd = torch.full_like(cd, float("nan"))
     return cd, emd
@@ -193,9 +208,23 @@ def _downsample_fixed(pts, n: int) -> np.ndarray:
     return resample_fixed(d, n)[0].astype(np.float32)
 
 
-def _fuse_aligned(cfg, arts, device) -> None:
+def _fuse_sharded(sources, targets, source_colors, target_colors, devices,
+                  **kw) -> list:
+    """``fuse_clouds_batched`` over the objects' dp shards, shard i on
+    devices[i] (one FPS launch a shard), the results in object order."""
+    k = len(sources) // len(devices)
+    fused = []
+    for i, d in enumerate(devices):
+        sl = slice(i * k, (i + 1) * k)
+        fused += fuse_clouds_batched(sources[sl], targets[sl],
+                                     source_colors[sl], target_colors[sl],
+                                     device=d, **kw)
+    return fused
+
+
+def _fuse_aligned(cfg, arts, devices) -> None:
     """Fuse the aligned completions with their partials (one FPS launch
-    over the batch)."""
+    over each shard of the batch)."""
     tgts, tgt_rgbs = [], []
     for art in arts:
         tgt, tgt_rgb = resample_fixed(
@@ -204,10 +233,10 @@ def _fuse_aligned(cfg, arts, device) -> None:
         tgts.append(tgt.astype(np.float32))
         tgt_rgbs.append(np.asarray(tgt_rgb, np.float32)
                         if tgt_rgb is not None else None)
-    fused = fuse_clouds_batched(
+    fused = _fuse_sharded(
         [np.asarray(a.color_xyz, np.float32) for a in arts], tgts,
         [np.asarray(a.color_rgb, np.float32) for a in arts], tgt_rgbs,
-        num_points=int(cfg.get("fused_points", 20000)), device=device)
+        devices, num_points=int(cfg.get("fused_points", 20000)))
     for art, (pts, cols) in zip(arts, fused):
         art.fused_xyz, art.fused_rgb = pts, cols
 
@@ -227,16 +256,23 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     (reg_prep, reg_pose, reg_coarse, reg_fine, reg_refine, reg_fusion),
     each ending in a device synchronisation.  fusion_debug (optional
     dict) receives per registered flag the attribution of the
-    partial->fused UHD across the fusion's steps (``_fusion_report``)."""
-    if mesh is not None:
-        raise NotImplementedError("device meshes are not ported "
-                                  "(ROADMAP: multi-GPU data parallelism)")
-    device = resolve_device(cfg.device)
+    partial->fused UHD across the fusion's steps (``_fusion_report``).
+    With a mesh each step runs over the dp shards of the objects; the
+    mesh is dropped when the registered objects do not split evenly
+    (reference: batched_runner.py:362-364)."""
+    device = resolve_device(cfg.device, mesh)
+
+    def shard_devices(n):
+        # the run's device alone when n objects do not split over dp
+        return dp_devices(mesh if n % dp_size(mesh) == 0 else None, device)
+
     if bool(cfg.get("trust_aligned_completion", False)):
-        _fuse_aligned(cfg, [a for a in arts if a.complete_aligned], device)
+        aligned = [a for a in arts if a.complete_aligned]
+        _fuse_aligned(cfg, aligned, shard_devices(len(aligned)))
         arts = [a for a in arts if not a.complete_aligned]
         if not arts:
             return
+    devs = shard_devices(len(arts))
     t_last = [time.time()]
 
     def mark(name):
@@ -246,9 +282,8 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
             timings[name] = now - t_last[0] + timings.get(name, 0.0)
             t_last[0] = now
 
-    def dev(arrays):
-        return torch.as_tensor(np.stack(arrays), dtype=torch.float32,
-                               device=device)
+    def stack(arrays):
+        return np.stack(arrays).astype(np.float32)
 
     B = len(arts)
     pose_n = int(cfg.get("pose_complete_points", POSE_N))
@@ -284,14 +319,14 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
         pose_c.append(cv), pose_cc.append(cvc)
     mark("reg_prep")
 
-    T = batched_pose_optim(
-        dev(pose_c), dev(pose_cc), dev(pose_p), dev(pose_pc),
-        0.02, float(cfg.get("pose_lr", 0.01)),
+    T = run_sharded(lambda c, cc, p, pc: batched_pose_optim(
+        c, cc, p, pc, 0.02, float(cfg.get("pose_lr", 0.01)),
         int(cfg.get("pose_iters", 200)),
         int(cfg.get("pose_render_size", 224)),
         coarse_frac=float(cfg.get("pose_coarse_frac", 0.7)),
-        prune_to=int(cfg.get("pose_prune_starts", 0)))
-    diff_T = np.linalg.inv(T.cpu().numpy()).astype(np.float32)
+        prune_to=int(cfg.get("pose_prune_starts", 0))), devs,
+        stack(pose_c), stack(pose_cc), stack(pose_p), stack(pose_pc))
+    diff_T = np.linalg.inv(T).astype(np.float32)
     mark("reg_pose")
 
     # normalise targets, transform sources into the pose frame (host)
@@ -299,21 +334,20 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     tgt_n = [normalize_points(t, range=0.5)[0] for t in tgts]
 
     # coarse sweep on fixed-size voxel downsamples
-    coarse_T, _ = batched_coarse_sweep(
-        dev([_downsample_fixed(s, icp_n) for s in src_w]),
-        dev([_downsample_fixed(t, icp_n) for t in tgt_n]),
-        torch.as_tensor(np.linspace(1.5, 0.8, 11), dtype=torch.float32,
-                        device=device), cd_inv_weight)
-    coarse_T = coarse_T.cpu().numpy()
+    scales = torch.as_tensor(np.linspace(1.5, 0.8, 11), dtype=torch.float32)
+    coarse_T, _ = run_sharded(lambda s, t: batched_coarse_sweep(
+        s, t, scales.to(s.device), cd_inv_weight), devs,
+        stack([_downsample_fixed(s, icp_n) for s in src_w]),
+        stack([_downsample_fixed(t, icp_n) for t in tgt_n]))
     mark("reg_coarse")
 
     # fine per-axis grid
     src_w = [_apply(coarse_T[i], src_w[i]) for i in range(B)]
-    S, fine_T = batched_fine_search(
-        dev([_downsample_fixed(s, icp_n) for s in src_w]),
-        dev([_downsample_fixed(t, icp_n) for t in tgt_n]),
-        cd_inv_weight=cd_inv_weight,
-        scale_steps=int(cfg.get("fine_scale_steps", 10)))
+    S, fine_T = run_sharded(lambda s, t: batched_fine_search(
+        s, t, cd_inv_weight=cd_inv_weight,
+        scale_steps=int(cfg.get("fine_scale_steps", 10))), devs,
+        stack([_downsample_fixed(s, icp_n) for s in src_w]),
+        stack([_downsample_fixed(t, icp_n) for t in tgt_n]))
     mark("reg_fine")
 
     # undo chain (reference order) back into the input frame
@@ -332,21 +366,21 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     # final snap in the input frame (partial -> complete, the inverse
     # applied to the complete)
     if bool(cfg.get("final_icp_refine", True)):
-        Tr = batched_similarity_refine(
-            dev([_downsample_fixed(s, icp_n) for s in final_s]),
-            dev([_downsample_fixed(t, icp_n) for t in final_t]),
-            mode=str(cfg.get("final_refine", "anisotropic"))).cpu().numpy()
+        Tr = run_sharded(lambda s, t: batched_similarity_refine(
+            s, t, mode=str(cfg.get("final_refine", "anisotropic"))), devs,
+            stack([_downsample_fixed(s, icp_n) for s in final_s]),
+            stack([_downsample_fixed(t, icp_n) for t in final_t]))
         for i in range(B):
             final_t[i] = _apply(np.linalg.inv(Tr[i]), final_t[i])
     mark("reg_refine")
 
-    # dedup + concat + fps + denoise (one FPS launch over the batch)
+    # dedup + concat + fps + denoise (one FPS launch over each shard)
     prov = [] if fusion_debug is not None else None
-    fused = fuse_clouds_batched(
-        final_s, final_t, src_rgbs, tgt_rgbs,
+    fused = _fuse_sharded(
+        final_s, final_t, src_rgbs, tgt_rgbs, devs,
         num_points=int(cfg.get("fused_points", 20000)),
         denoise_neighbors=int(cfg.get("denoise_neighbors", 20)),
-        denoise_std_ratio=float(cfg.get("denoise_std", 2.5)), device=device,
+        denoise_std_ratio=float(cfg.get("denoise_std", 2.5)),
         provenance=prov)
     for art, (pts, cols) in zip(arts, fused):
         art.fused_xyz, art.fused_rgb = pts, cols
@@ -420,6 +454,25 @@ def _generate_images(cfg, dp, arts) -> None:
             art.depth, get_category(art.flag), size=size))
 
 
+def _pad_to_dp(arts: List[ObjectArtifacts], mesh) -> List[ObjectArtifacts]:
+    """The batch padded to a multiple of dp with copies of the last
+    object's record as it stands (flags ``_pad<i>``; reference:
+    batched_runner.py:617-624).  The device stages run them, and their
+    results are dropped.  The runners pad before stage 1 and pad again
+    after stage 2, so a pad carries the last object's generated image and
+    completion instead of running the generators (the reference copies
+    the image and runs stage 2 on the pads)."""
+    pad = (-len(arts)) % dp_size(mesh)
+    return arts + [dataclasses.replace(arts[-1], flag=f"_pad{i}")
+                   for i in range(pad)]
+
+
+def _pad_rows(a: np.ndarray, k: int) -> np.ndarray:
+    """a [B,...] padded along B to a multiple of k with its last row."""
+    pad = (-len(a)) % k
+    return np.concatenate([a] + [a[-1:]] * pad) if pad else a
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -437,8 +490,10 @@ def run_batched(cfg, flags: List[str], data_dir: str,
     (load/stage1/generate/stage2/stage3/metric), each stage ending in a
     device synchronisation, and the registration steps inside stage 3
     (``batched_reg``'s reg_* keys).  dp (optional) injects a pre-built
-    DepthPrompting."""
-    device = resolve_device(cfg.device, cfg.get("mesh_shape"))
+    DepthPrompting.  With cfg.mesh_shape every stage splits the objects
+    over dp (the module docstring)."""
+    mesh = get_mesh(cfg)
+    device = resolve_device(cfg.device, mesh)
     t_last = [time.time()]
 
     def mark(name):
@@ -457,23 +512,26 @@ def run_batched(cfg, flags: List[str], data_dir: str,
     for flag in flags:
         xyz, rgb = load_xyz(os.path.join(data_dir, f"{flag}.ply"))
         arts.append(input_artifacts(flag, xyz, rgb, n_in))
+    real_arts, arts = arts, _pad_to_dp(arts, mesh)
     mark("load")
-    batched_stage1(cfg, arts, dp.viewpoints, dp=dp)
+    batched_stage1(cfg, arts, dp.viewpoints, dp=dp, mesh=mesh)
     # the inpainter is done once every depth is painted: free it before
     # the generator loads (the reference keeps it resident)
     _release_backend(dp, "inpainter")
     mark("stage1")
-    _generate_images(cfg, dp, arts)
+    _generate_images(cfg, dp, real_arts)
     _release_backend(dp, "depth2image")
     mark("generate")
-    sa.scale_adapter_batch(arts)
+    sa.scale_adapter_batch(real_arts)
     _release_backend(sa, "image23d")
     _release_backend(sa, "rembg")
+    arts = _pad_to_dp(real_arts, mesh)
     mark("stage2")
 
     batch = batch or len(arts)
     for i in range(0, len(arts), batch):
-        batched_reg(cfg, arts[i:i + batch], timings=timings)
+        batched_reg(cfg, arts[i:i + batch], mesh=mesh, timings=timings)
+    arts = real_arts
     mark("stage3")
 
     # batched metric: FPS from the FULL clouds (reference: main.py:21-22),
@@ -492,27 +550,30 @@ def run_batched(cfg, flags: List[str], data_dir: str,
         gts.append(np.asarray(gt, np.float32))
         valid.append(art.flag)
     if preds:
-        preds = pad_repeat(preds)
-        gts = pad_repeat(gts)
+        devs = dp_devices(mesh, device)
+        # the batch padded to a dp multiple by repeating its last cloud
+        preds = _pad_rows(pad_repeat(preds), len(devs))
+        gts = _pad_rows(pad_repeat(gts), len(devs))
         # GT clouds are immutable across passes over one eval set: keep
         # the GT-side FPS selection (the metric stage's biggest compute)
-        # keyed by the GT directory, flag set, shape, sample count, device.
+        # keyed by the GT directory, flag set, shape, sample count and
+        # the shards' devices (the mesh).
         num_points = int(cfg.metric_points)
         gt_key = (os.path.abspath(gt_dir), tuple(valid), gts.shape,
-                  num_points, str(device))
+                  num_points, tuple(str(d) for d in devs))
         cached = _GT_DEVICE_CACHE.get("entry")
         if cached is not None and cached[0] == gt_key:
             gt_s = cached[1]
         else:
-            gt_s = batched_fps_gather(torch.as_tensor(gts, device=device),
-                                      num_points)
+            gt_s = [batched_fps_gather(g, num_points)
+                    for g in split(gts, devs)]
             _GT_DEVICE_CACHE["entry"] = (gt_key, gt_s)
-        pred_s = batched_fps_gather(torch.as_tensor(preds, device=device),
-                                    num_points)
-        cd, emd = batched_metric_sampled(
-            pred_s, gt_s, emd_eps=float(cfg.emd_eps),
+        outs = [batched_metric_sampled(
+            batched_fps_gather(p, num_points), g, emd_eps=float(cfg.emd_eps),
             emd_iters=int(cfg.emd_iters), with_emd=with_emd)
-        cd, emd = cd.cpu().numpy(), emd.cpu().numpy()
+            for p, g in zip(split(preds, devs), gt_s)]
+        cd, emd = (np.concatenate([o[j].cpu().numpy() for o in outs])
+                   for j in (0, 1))
         for i, flag in enumerate(valid):
             results[flag] = {"cd": float(cd[i])}
             if with_emd:
@@ -535,14 +596,16 @@ def _holdout_wedge(xyz: np.ndarray, wedge_deg: float) -> np.ndarray:
 
 
 def _uhd_batched(partials: List[np.ndarray], fused: List[np.ndarray],
-                 device) -> np.ndarray:
+                 devices: List[torch.device]) -> np.ndarray:
     """Max-of-min distance of each partial into its fused cloud [B]: one
-    K1 launch over both sides padded by repetition (a duplicate changes
-    neither a row's minimum nor the maximum over rows)."""
-    f32 = dict(dtype=torch.float32, device=device)
-    d2, _ = _nn(torch.as_tensor(pad_repeat(partials), **f32),
-                torch.as_tensor(pad_repeat(fused), **f32))
-    return np.sqrt(np.maximum(d2.cpu().numpy(), 0.0)).max(axis=1)
+    K1 launch per dp shard (``devices``) over both sides padded by
+    repetition (a duplicate changes neither a row's minimum nor the
+    maximum over rows), the batch padded to a shard multiple."""
+    k = len(devices)
+    p = _pad_rows(pad_repeat(partials).astype(np.float32), k)
+    f = _pad_rows(pad_repeat(fused).astype(np.float32), k)
+    d2 = run_sharded(lambda a, b: _nn(a, b)[0], devices, p, f)
+    return np.sqrt(np.maximum(d2, 0.0)).max(axis=1)[:len(partials)]
 
 
 def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
@@ -561,8 +624,10 @@ def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
     PED scans hold ~350-500), and ``holdout_uhd`` is the max distance
     from the held-out points to the fused completion: a completion
     quality signal the partial->fused UHD cannot give, since the fused
-    cloud contains the partial."""
-    device = resolve_device(cfg.device, cfg.get("mesh_shape"))
+    cloud contains the partial.  With cfg.mesh_shape every stage splits
+    the objects over dp (the module docstring)."""
+    mesh = get_mesh(cfg)
+    devs = dp_devices(mesh, resolve_device(cfg.device, mesh))
     dp = DepthPrompting(cfg)
     sa = ScaleAdapter(cfg)
     n_in = int(cfg.get("input_points", 65536))
@@ -578,25 +643,29 @@ def run_batched_lidar(cfg, flags: List[str], data_dir: str, category: str,
                 heldout[flag] = xyz[held].astype(np.float32)
                 xyz, rgb = xyz[~held], rgb[~held]
         arts.append(input_artifacts(flag, xyz, rgb, n_in))
+    real_arts, arts = arts, _pad_to_dp(arts, mesh)
 
-    batched_stage1(cfg, arts, dp.viewpoints, dp=dp)
+    batched_stage1(cfg, arts, dp.viewpoints, dp=dp, mesh=mesh)
     _release_backend(dp, "inpainter")
-    _generate_images(cfg, dp, arts)
+    _generate_images(cfg, dp, real_arts)
     _release_backend(dp, "depth2image")
-    sa.scale_adapter_batch(arts)
+    sa.scale_adapter_batch(real_arts)
     _release_backend(sa, "image23d")
     _release_backend(sa, "rembg")
+    arts = _pad_to_dp(real_arts, mesh)
     batch = batch or len(arts)
     for i in range(0, len(arts), batch):
-        batched_reg(cfg, arts[i:i + batch], fusion_debug=fusion_debug)
+        batched_reg(cfg, arts[i:i + batch], mesh=mesh,
+                    fusion_debug=fusion_debug)
+    arts = real_arts
 
     h = _uhd_batched([a.xyz for a in arts], [a.fused_xyz for a in arts],
-                     device)
+                     devs)
     results = {a.flag: {"uhd": float(h[i])} for i, a in enumerate(arts)}
     if heldout:
         held_arts = [a for a in arts if a.flag in heldout]
         hu = _uhd_batched([heldout[a.flag] for a in held_arts],
-                          [a.fused_xyz for a in held_arts], device)
+                          [a.fused_xyz for a in held_arts], devs)
         for i, a in enumerate(held_arts):
             results[a.flag]["holdout_uhd"] = float(hu[i])
     return results
@@ -634,10 +703,14 @@ def _project(eye: torch.Tensor, pts: torch.Tensor, fovy_rad: float
 
 
 def make_stage1_core(cfg, viewpoints: np.ndarray,
-                     device: torch.device | str = "cpu"):
+                     device: torch.device | str = "cpu", mesh=None):
     """Build the batched Stage-1 core: (xyz, rgb) [B,N,3] ->
     (uv [B,N,2], viewpoint [B,3], raw_depth/depth/mask1/mask2
-    [B,3,res,res]).
+    [B,3,res,res]).  With a mesh that has a dp axis the core takes the
+    dp shards of xyz and rgb (``mesh.dp_sharded``), runs each on its
+    device and returns the outputs gathered in shard order on the first
+    dp device (the reference runs the core under shard_map,
+    batched_runner.py:902-907).
 
     FPS to ``downsample_num`` (one K2 launch over the batch),
     coarse-to-exact z-buffer viewpoint selection over the rig, the
@@ -650,8 +723,6 @@ def make_stage1_core(cfg, viewpoints: np.ndarray,
     from genpc_tpu_torch.render.inpaint import diffusion_inpaint
     from genpc_tpu_torch.render.splat import raw_depth_images, uvs_to_pixels
 
-    views = torch.as_tensor(np.asarray(viewpoints), dtype=torch.float32,
-                            device=device)
     fovy_rad = math.pi * float(cfg.fovy) / 180.0
     res = int(cfg.res)
     n_ds = int(cfg.downsample_num)
@@ -663,7 +734,7 @@ def make_stage1_core(cfg, viewpoints: np.ndarray,
     sel_coarse = int(cfg.get("select_coarse_points", 2500))
     sel_topk = int(cfg.get("select_topk", 48))
 
-    def core(xyz: torch.Tensor, rgb: torch.Tensor):
+    def core(xyz: torch.Tensor, rgb: torch.Tensor, views: torch.Tensor):
         sampled = batched_fps_gather(xyz, n_ds)
         best = torch.stack([select_best_view(p, views, n_coarse=sel_coarse,
                                              topk=sel_topk)
@@ -688,17 +759,33 @@ def make_stage1_core(cfg, viewpoints: np.ndarray,
             if fill else None
         return uv, view, raw, depth, m1, m2
 
-    return core
+    def views_on(d):
+        return torch.as_tensor(np.asarray(viewpoints), dtype=torch.float32,
+                               device=d)
+
+    if mesh is None or "dp" not in mesh.axis_names:
+        return functools.partial(core, views=views_on(device))
+    devs = mesh.axis_devices("dp")
+    views = {d: views_on(d) for d in set(devs)}
+
+    def sharded(xyz_shards, rgb_shards):
+        outs = [core(x, r, views[d])
+                for x, r, d in zip(xyz_shards, rgb_shards, devs)]
+        return tuple(None if o[0] is None else gather(o, devs[0])
+                     for o in zip(*outs))
+
+    return sharded
 
 
 def batched_stage1(cfg, arts: List[ObjectArtifacts],
                    viewpoints: np.ndarray, core=None,
-                   dp: Optional[DepthPrompting] = None) -> None:
+                   dp: Optional[DepthPrompting] = None, mesh=None) -> None:
     """Run the Stage-1 core over a batch; fill the artifacts' fields.  With
     an inpainter other than the diffusion fill each object's depth is
     painted in the reference's per-object loop: by the FLUX or DDNM
     inpainter that ``dp`` holds (DDNM over hole mask 2, which it keeps as
-    the object's mask), or by cv2 on the host."""
+    the object's mask), or by cv2 on the host.  With a mesh the objects
+    split over dp (their count a multiple of dp)."""
     name = cfg.get("inpainter", "jax")
     inpainter = None
     if name in ("flux", "DDNM"):
@@ -708,14 +795,18 @@ def batched_stage1(cfg, arts: List[ObjectArtifacts],
         inpainter = dp.inpainter
     else:
         make_inpainter(cfg)          # raises for an unknown name
-    device = resolve_device(cfg.device)
-    core = core or make_stage1_core(cfg, viewpoints, device=device)
-    xyz = torch.as_tensor(np.stack([a.xyz for a in arts]),
-                          dtype=torch.float32, device=device)
-    rgb = torch.as_tensor(np.stack([a.rgb for a in arts]),
-                          dtype=torch.float32, device=device)
+    device = resolve_device(cfg.device, mesh)
+    core = core or make_stage1_core(cfg, viewpoints, device=device,
+                                    mesh=mesh)
+    xyz = np.stack([a.xyz for a in arts]).astype(np.float32)
+    rgb = np.stack([a.rgb for a in arts]).astype(np.float32)
+    if mesh is not None and "dp" in mesh.axis_names:
+        inputs = dp_sharded(mesh, xyz, rgb)
+    else:
+        inputs = (torch.as_tensor(xyz, device=device),
+                  torch.as_tensor(rgb, device=device))
     uv, vp, raw, depth, m1, m2 = (None if t is None else t.cpu().numpy()
-                                  for t in core(xyz, rgb))
+                                  for t in core(*inputs))
     for i, art in enumerate(arts):
         art.point_uv = uv[i]
         art.viewpoint = vp[i]

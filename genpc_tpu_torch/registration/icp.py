@@ -22,6 +22,11 @@ iteration, never per problem).
 A problem whose target is shared between problems passes ``tgt_index``
 (int32 [P], the target batch of each problem), so K1 reads one target
 per object instead of a copy per problem.
+
+Every sum over points and every small matrix product goes through
+``ops/rowsum``, which on the card sums each output in an order that does
+not depend on how many problems share the call: a dp shard's objects
+register as they do in the whole batch.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from genpc_tpu_torch.ops.chamfer import _nn
+from genpc_tpu_torch.ops.rowsum import matmul, mean_dims, sum_dims
 
 
 def _eye(p: int, n: int, device) -> torch.Tensor:
@@ -41,7 +47,7 @@ def _eye(p: int, n: int, device) -> torch.Tensor:
 
 def _apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """T [P,4,4] applied to pts [P,N,3]."""
-    return pts @ T[:, :3, :3].transpose(1, 2) + T[:, None, :3, 3]
+    return matmul(pts, T[:, :3, :3].transpose(1, 2)) + T[:, None, :3, 3]
 
 
 def _rt(A: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -58,11 +64,15 @@ def _gather_targets(tgt: torch.Tensor, idx: torch.Tensor,
     return torch.gather(t, 1, idx.long()[..., None].expand(-1, -1, 3))
 
 
+def _point_sum(x: torch.Tensor) -> torch.Tensor:
+    """[P,N,...] -> [P,...]: the sum over the points."""
+    return sum_dims(x, (1,))
+
+
 def _weighted_means(src, tgt, weights):
-    w = weights / torch.clamp_min(weights.sum(1, keepdim=True), 1e-12)
-    ms = (src * w[..., None]).sum(1)
-    mt = (tgt * w[..., None]).sum(1)
-    return w, ms, mt
+    w = weights / torch.clamp_min(sum_dims(weights, (1,), keepdim=True),
+                                  1e-12)
+    return w, _point_sum(src * w[..., None]), _point_sum(tgt * w[..., None])
 
 
 def kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor
@@ -70,15 +80,15 @@ def kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor
     """Weighted rigid alignment src -> tgt for [P,N,3] pairs, weights
     [P,N]: returns (R [P,3,3], t [P,3])."""
     w, ms, mt = _weighted_means(src, tgt, weights)
-    H = (src - ms[:, None]).transpose(1, 2) @ ((tgt - mt[:, None])
-                                               * w[..., None])
+    H = matmul((src - ms[:, None]).transpose(1, 2),
+               (tgt - mt[:, None]) * w[..., None])
     U, _, Vt = torch.linalg.svd(H)
     V = Vt.transpose(1, 2)
-    d = torch.sign(torch.linalg.det(V @ U.transpose(1, 2)))
+    d = torch.sign(torch.linalg.det(matmul(V, U.transpose(1, 2))))
     D = _eye(src.shape[0], 3, src.device)
     D[:, 2, 2] = d
-    R = V @ D @ U.transpose(1, 2)
-    t = mt - (R @ ms[..., None])[..., 0]
+    R = matmul(matmul(V, D), U.transpose(1, 2))
+    t = mt - matmul(R, ms[..., None])[..., 0]
     return R, t
 
 
@@ -89,16 +99,16 @@ def umeyama(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor
     w, ms, mt = _weighted_means(src, tgt, weights)
     xs = src - ms[:, None]
     xt = tgt - mt[:, None]
-    H = xs.transpose(1, 2) @ (xt * w[..., None])
+    H = matmul(xs.transpose(1, 2), xt * w[..., None])
     U, D, Vt = torch.linalg.svd(H)
     V = Vt.transpose(1, 2)
-    d = torch.sign(torch.linalg.det(V @ U.transpose(1, 2)))
+    d = torch.sign(torch.linalg.det(matmul(V, U.transpose(1, 2))))
     S = torch.ones_like(D)
     S[:, 2] = d
-    R = V @ torch.diag_embed(S) @ U.transpose(1, 2)
-    var_s = (xs.square() * w[..., None]).sum((1, 2))
+    R = matmul(matmul(V, torch.diag_embed(S)), U.transpose(1, 2))
+    var_s = sum_dims(xs.square() * w[..., None], (1, 2))
     c = (D * S).sum(1) / torch.clamp_min(var_s, 1e-12)
-    t = mt - c[:, None] * (R @ ms[..., None])[..., 0]
+    t = mt - c[:, None] * matmul(R, ms[..., None])[..., 0]
     return c, R, t
 
 
@@ -130,7 +140,7 @@ def icp(source: torch.Tensor, target: torch.Tensor,
         moved, _, y, w = _correspond(src, T, tgt, tgt_index, thresh2)
         any_in = w.sum(1) > 0
         R, t = kabsch(moved, y, torch.where(any_in[:, None], w, 1.0))
-        T = torch.where(any_in[:, None, None], _rt(R, t) @ T, T)
+        T = torch.where(any_in[:, None, None], matmul(_rt(R, t), T), T)
     d2, _ = _nn(_apply(T, src), tgt, tgt_index)
     inl = d2 <= thresh2
     fitness = inl.to(torch.float32).mean(1)
@@ -154,7 +164,7 @@ def similarity_icp(source: torch.Tensor, target: torch.Tensor,
         any_in = w.sum(1) > 2
         c, R, t = umeyama(moved, y, torch.where(any_in[:, None], w, 1.0))
         T = torch.where(any_in[:, None, None],
-                        _rt(c[:, None, None] * R, t) @ T, T)
+                        matmul(_rt(c[:, None, None] * R, t), T), T)
     return T
 
 
@@ -178,13 +188,13 @@ def anisotropic_icp(source: torch.Tensor, target: torch.Tensor,
         s = torch.ones((p, 3), dtype=torch.float32, device=src.device)
         t = torch.zeros((p, 3), dtype=torch.float32, device=src.device)
         for _ in range(inner):
-            yb = (y - t[:, None]) @ R
-            num = (w[..., None] * moved * yb).sum(1)
-            den = (w[..., None] * moved * moved).sum(1)
+            yb = matmul(y - t[:, None], R)
+            num = _point_sum(w[..., None] * moved * yb)
+            den = _point_sum(w[..., None] * moved * moved)
             s = torch.clamp(num / torch.clamp_min(den, 1e-12), 0.75, 1.25)
             R, t = kabsch(moved * s[:, None], y, w)
         T = torch.where(any_in[:, None, None],
-                        _rt(R @ torch.diag_embed(s), t) @ T, T)
+                        matmul(_rt(matmul(R, torch.diag_embed(s)), t), T), T)
     return T
 
 
@@ -204,20 +214,21 @@ def affine_icp(source: torch.Tensor, target: torch.Tensor,
         moved, _, y, w0 = _correspond(src, T, tgt, None, thresh2)
         any_in = w0.sum(1) > 8
         w = torch.where(any_in[:, None], w0, 1.0)[..., None]
-        wsum = torch.clamp_min(w.sum(1), 1e-6)
-        xm = (w * moved).sum(1) / wsum
-        ym = (w * y).sum(1) / wsum
+        wsum = torch.clamp_min(_point_sum(w), 1e-6)
+        xm = _point_sum(w * moved) / wsum
+        ym = _point_sum(w * y) / wsum
         Xc = moved - xm[:, None]
         Yc = y - ym[:, None]
-        Sxx = (w * Xc).transpose(1, 2) @ Xc
+        Sxx = matmul((w * Xc).transpose(1, 2), Xc)
         tr = Sxx.diagonal(dim1=1, dim2=2).sum(1)
         Sxx = Sxx + 1e-6 * tr[:, None, None] * eye3
-        Sxy = (w * Yc).transpose(1, 2) @ Xc
-        A = Sxy @ torch.linalg.inv_ex(Sxx)[0]
+        Sxy = matmul((w * Yc).transpose(1, 2), Xc)
+        A = matmul(Sxy, torch.linalg.inv_ex(Sxx)[0])
         U, S, Vt = torch.linalg.svd(A)
-        A = U @ torch.diag_embed(torch.clamp(S, 0.75, 1.25)) @ Vt
-        t = ym - (A @ xm[..., None])[..., 0]
-        T = torch.where(any_in[:, None, None], _rt(A, t) @ T, T)
+        A = matmul(matmul(U, torch.diag_embed(torch.clamp(S, 0.75, 1.25))),
+                   Vt)
+        t = ym - matmul(A, xm[..., None])[..., 0]
+        T = torch.where(any_in[:, None, None], matmul(_rt(A, t), T), T)
     return T
 
 
@@ -237,14 +248,14 @@ def icp_with_scaling(source, target, scale: torch.Tensor,
     T1, _, _ = icp(source, target, max_correspondence_distance,
                    init_transform, iters=iters, tgt_index=tgt_index)
     return icp(source, target, max_correspondence_distance,
-               T1 @ _scale_mat(scale.to(torch.float32)), iters=iters,
+               matmul(T1, _scale_mat(scale.to(torch.float32))), iters=iters,
                tgt_index=tgt_index)
 
 
 def _partial_l1(x, y, y_index=None) -> torch.Tensor:
     """Per-problem one-sided chamfer-L1: mean sqrt of x's NN distances."""
     d, _ = _nn(x, y, y_index)
-    return torch.sqrt(torch.clamp_min(d, 0.0)).mean(1)
+    return mean_dims(torch.sqrt(torch.clamp_min(d, 0.0)), (1,))
 
 
 def _coarse_one(scale: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,

@@ -16,7 +16,9 @@ All objects' starts render together: R = B·4 images per step through the
 slot renderer (kernels K4/K5) and one-sided Chamfer terms through K1
 (the partial shared per object through ``y_index``).  The step uses no
 matrix-multiply library call and no float atomics, so it repeats bitwise
-on the card.
+on the card; its sums over pixels and points go through ``ops/rowsum``,
+so on the card an object's steps do not depend on the objects batched
+beside it.
 
 The carry is a dict: ``params`` and ``best_params`` ({rot6d [B,K,6],
 trans [B,K,3], log_scale [B,K,1]}), ``opt`` ({mu, nu: like params; count
@@ -34,6 +36,7 @@ import torch
 from genpc_tpu_torch.geometry.transforms import (
     build_transform, rot6d_from_axis_angle, rotation_6d_to_matrix)
 from genpc_tpu_torch.ops.chamfer import nn_one_sided
+from genpc_tpu_torch.ops.rowsum import mean_dims, std_dims, sum_dims
 from genpc_tpu_torch.render.point_renderer import (
     RenderCamera, clip, hard_mask, render_points, soft_mask)
 
@@ -55,24 +58,25 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 def _normalize_images(ref_img, result_img):
     """Statistical colour match of result to ref per render
     (diff_obj_pose.py:201-236); images [R,r,r,3]."""
-    ref_mean = ref_img.mean(dim=(1, 2), keepdim=True)
-    ref_std = ref_img.std(dim=(1, 2), keepdim=True, correction=0) + 1e-6
-    res_mean = result_img.mean(dim=(1, 2), keepdim=True)
-    res_std = result_img.std(dim=(1, 2), keepdim=True, correction=0) + 1e-6
+    ref_mean = mean_dims(ref_img, (1, 2), keepdim=True)
+    ref_std = std_dims(ref_img, (1, 2), keepdim=True) + 1e-6
+    res_mean = mean_dims(result_img, (1, 2), keepdim=True)
+    res_std = std_dims(result_img, (1, 2), keepdim=True) + 1e-6
     out = (result_img - res_mean) / res_std * ref_std + ref_mean
     return ref_img, clip(out, 0.0, 1.0)
 
 
 def _dice_loss(pred, target, smooth=1e-6):
-    inter = (pred * target).sum((1, 2))
-    return 1.0 - (2.0 * inter + smooth) / (pred.sum((1, 2))
-                                           + target.sum((1, 2)) + smooth)
+    inter = sum_dims(pred * target, (1, 2))
+    return 1.0 - (2.0 * inter + smooth) / (sum_dims(pred, (1, 2))
+                                           + sum_dims(target, (1, 2))
+                                           + smooth)
 
 
 def _bce(pred, target):
     p = clip(pred, 1e-7, 1.0 - 1e-7)
-    return -(target * torch.log(p)
-             + (1 - target) * torch.log(1 - p)).mean((1, 2))
+    return -mean_dims(target * torch.log(p)
+                      + (1 - target) * torch.log(1 - p), (1, 2))
 
 
 def _rot_apply(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -110,15 +114,15 @@ def pose_loss(params, vert_pos, vert_col, center, partial_xyz, ref_img,
     ref_n, result_n = _normalize_images(ref, result)
     mask_result = soft_mask(result_n)
     mask_ref = soft_mask(ref_n)
-    mask_loss = ((mask_result - mask_ref).square().mean((1, 2)) * 30.0
+    mask_loss = (mean_dims((mask_result - mask_ref).square(), (1, 2)) * 30.0
                  + _bce(mask_result, mask_ref)
                  + 10.0 * _dice_loss(mask_result, mask_ref))
     obj = torch.arange(b, dtype=torch.int32,
                        device=flat.device).repeat_interleave(k)
     d_fwd, _ = nn_one_sided(flat, partial_xyz.to(torch.float32), obj)
     d_rev, _ = nn_one_sided(partial_xyz.to(torch.float32)[obj.long()], flat)
-    cd = (torch.sqrt(torch.clamp_min(d_fwd, 0.0)).mean(1)
-          + 0.5 * torch.sqrt(torch.clamp_min(d_rev, 0.0)).mean(1))
+    cd = (mean_dims(torch.sqrt(torch.clamp_min(d_fwd, 0.0)), (1,))
+          + 0.5 * mean_dims(torch.sqrt(torch.clamp_min(d_rev, 0.0)), (1,)))
     # eps keeps the Frobenius-norm gradient finite at exact orthogonality
     eye = torch.eye(3, dtype=torch.float32, device=R.device)
     rrt = _rot_apply(R, R)                       # R @ Rᵀ
@@ -136,9 +140,9 @@ def render_reference_image(partial_xyz, partial_col, radius,
     return img, hard_mask(img), cam
 
 
-def _lr(lr: float, key: str) -> float:
+def _lr(lr: float, key: str, factors=LR_FACTOR) -> float:
     lr32 = np.float32(lr)
-    f = LR_FACTOR[key]
+    f = factors[key]
     return float(lr32 if f is None else lr32 * np.float32(f))
 
 
@@ -193,9 +197,10 @@ def pose_carry_from_arrays(params, mu, nu, count, best, best_params,
             "ref_img": t(ref_img), "ref_mask": t(ref_mask)}
 
 
-def _adam(params, grads, opt, lr: float):
+def _adam(params, grads, opt, lr: float, factors=LR_FACTOR):
     """One Adam update in optax's order: mu, nu, bias correction from the
-    incremented count, u = -lr·m̂/(√v̂ + eps), p + u."""
+    incremented count, u = -lr·m̂/(√v̂ + eps), p + u; each group's
+    learning rate is lr times its entry of ``factors`` (None: 1)."""
     count = opt["count"] + 1
     c = count.to(torch.float32)[..., None]
     bc1 = 1 - torch.pow(torch.tensor(B1, dtype=torch.float32,
@@ -208,7 +213,7 @@ def _adam(params, grads, opt, lr: float):
         mu[k] = (1 - B1) * g + B1 * opt["mu"][k]
         nu[k] = (1 - B2) * g.square() + B2 * opt["nu"][k]
         upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + EPS)
-        new_p[k] = params[k] + upd * -_lr(lr, k)
+        new_p[k] = params[k] + upd * -_lr(lr, k, factors)
     return new_p, {"mu": mu, "nu": nu, "count": count}
 
 
@@ -218,7 +223,7 @@ def pose_carry_steps(carry: Dict, vert_pos, vert_col, partial_xyz, radius,
     Before each update the best-loss parameters are kept (strict
     ``loss < best``, diff_obj_pose.py:547-567)."""
     camera = RenderCamera.default(render_size)
-    center = vert_pos.mean(dim=1)
+    center = mean_dims(vert_pos, (1,))
     params, opt = carry["params"], carry["opt"]
     best, best_params = carry["best"], carry["best_params"]
     for _ in range(steps):

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from genpc_tpu_torch.ops.rowsum import sum_dims
+
 
 def diffusion_inpaint(img: torch.Tensor, hole_mask: torch.Tensor,
                       iters: int = 250) -> torch.Tensor:
@@ -22,7 +24,8 @@ def diffusion_inpaint(img: torch.Tensor, hole_mask: torch.Tensor,
 
     img [...,C,H,W] float; hole_mask [...,H,W] or [...,C,H,W] (any
     nonzero = hole; a channel axis is reduced by max).  Leading axes
-    batch independent images."""
+    batch independent images (on the card each image's mean is summed
+    alone, ``ops/rowsum``, so a batch of any size fills it alike)."""
     x = img.to(torch.float32)
     m = hole_mask.to(torch.float32)
     if m.ndim == x.ndim:
@@ -31,7 +34,7 @@ def diffusion_inpaint(img: torch.Tensor, hole_mask: torch.Tensor,
     known = ~hole
 
     # seed holes with the mean of the known pixels for faster relaxation
-    known_mean = (x * known).sum(dim=(-2, -1)) / torch.clamp_min(
+    known_mean = sum_dims(x * known, (-2, -1)) / torch.clamp_min(
         known.sum(dim=(-2, -1)), 1)
     x = torch.where(hole, known_mean[..., None, None], x)
     for _ in range(iters):

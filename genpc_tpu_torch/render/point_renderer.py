@@ -1,9 +1,9 @@
-"""Differentiable soft point-splat renderer of the pose optimiser
-(counterpart of the slots path of genpc_tpu/render/point_renderer.py;
-the reference's Pulsar setup: eye (0,0,3), focal 4.0, 224², gamma 1e-2,
-world-space radii, black background, diff_obj_pose.py:108-134).
+"""Differentiable soft point-splat renderers (counterpart of
+genpc_tpu/render/point_renderer.py; the reference's Pulsar setup: eye
+(0,0,3), focal 4.0, 224², gamma 1e-2, world-space radii, black
+background, diff_obj_pose.py:108-134).
 
-Each point projects to a continuous pixel position and writes ONE
+``method="slots"`` is the pose optimiser's renderer.  Each point projects to a continuous pixel position and writes ONE
 attribute record into the next free slot of its centre pixel
 (``_build_table``: a stable sort by pixel, ranks by ``cummax``, a
 scatter whose real targets are unique).  The image is then assembled
@@ -13,9 +13,17 @@ gives each point the gradients of its own entry (``_SlotsRender``).
 Every sum has a fixed order, so a render and its gradient repeat
 bitwise.
 
+``method="scatter"`` (the default, as in the reference) is the
+footprint-scatter formulation in plain torch (``_render_scatter``): a
+centre-pixel ``scatter_reduce(amax)`` dilated by a (2f+1)² max pool
+gives each pixel's depth maximum, then one ``index_add_`` over all K²
+offsets of every point sums the weights.  Its float sums are taken in
+the order the device's atomics take them; ``deterministic=True`` sums
+the reference's two-word fixed-point integers instead (``_QuantizedSums``,
+int64 ``index_add_``), which gives the same bits in any order.  Its
+gradient is autograd's.
+
 Renders are batched: points [R,N,3] (or [N,3]) -> images [R,res,res,3].
-Only ``method="slots"`` is ported; the reference's footprint-scatter
-renderer (``method="scatter"``) is not on the pose path.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from genpc_tpu_torch.render.splat_kernel import (CH, assemble,
                                                  assemble_bwd_points)
@@ -164,25 +173,134 @@ class _SlotsRender(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+class _QuantizedSums(torch.autograd.Function):
+    """Per-index sums of vals [E,C] at idx [E] into [n,C], bitwise the
+    same in any summation order (the reference's ``_quantized_sums`` and
+    ``_segment_accumulate``, point_renderer.py:55-110): each element is
+    scaled by its index's largest last-channel value (a scatter-max,
+    order-free), written as two fixed-point words (2^15 and a 2^12
+    residual) and summed as int64, then scaled back.  Envelope: vals >= 0,
+    each row bounded by its last channel.  The gradient is the float
+    sum's: the output cotangent gathered at each element's index."""
+
+    @staticmethod
+    def forward(ctx, idx, vals, n: int):
+        s1, s2 = 32768.0, 4096.0
+        w = vals[:, -1]
+        pmax = torch.zeros(n, dtype=torch.float32, device=vals.device) \
+            .scatter_reduce(0, idx, w, "amax", include_self=True)
+        u = vals / torch.clamp_min(pmax[idx], 1e-30)[:, None]
+        q1 = torch.round(u * s1)
+        q2 = torch.round((u * s1 - q1) * s2)
+        c = vals.shape[1]
+        acc = torch.zeros((n, 2 * c), dtype=torch.int64,
+                          device=vals.device).index_add_(
+            0, idx, torch.cat([q1, q2], 1).to(torch.int64))
+        a1, a2 = acc[:, :c], acc[:, c:]
+        sums = (a1.to(torch.float32) + a2.to(torch.float32) / s2) / s1
+        ctx.save_for_backward(idx)
+        return sums * pmax[:, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return None, g[idx], None
+
+
+def _render_scatter(points: torch.Tensor, cols: torch.Tensor, radius,
+                    camera: RenderCamera, gamma: float, footprint: int,
+                    deterministic: bool) -> torch.Tensor:
+    """Footprint scatter renderer (reference: point_renderer.py:343-410)
+    of R renders: points, cols [R,N,3] -> images [R,res,res,3].  Each
+    render's pixels, plus one dummy entry for dropped contributions,
+    take the rows r·(res²+1) + pixel of one flat accumulator."""
+    res, f = camera.res, footprint
+    k = 2 * f + 1
+    r, n = points.shape[:2]
+    npix = res * res
+    dev = points.device
+    px, py, dn, sigma2, in_front = _project_attrs(points, radius, camera,
+                                                  footprint)
+    ix = torch.floor(px).to(torch.int64)
+    iy = torch.floor(py).to(torch.int64)
+    base = (torch.arange(r, device=dev) * (npix + 1))[:, None]
+
+    # pass 1: each pixel's depth maximum = one centre-pixel scatter-max
+    # dilated by a (2f+1)² max pool (a footprint reaches f pixels from
+    # its centre); it only normalises the weights and carries no gradient
+    with torch.no_grad():
+        center_ok = in_front & (ix >= 0) & (ix < res) & (iy >= 0) & \
+            (iy < res)
+        cpix = torch.where(center_ok, iy * res + ix, npix) + base
+        d0 = torch.full((r * (npix + 1),), -1.0, dtype=torch.float32,
+                        device=dev).scatter_reduce(
+            0, cpix.reshape(-1),
+            torch.where(center_ok, dn, -1.0).reshape(-1), "amax",
+            include_self=True).reshape(r, npix + 1)
+        img = F.max_pool2d(d0[:, :npix].reshape(r, 1, res, res), k, 1, f)
+        dmax = torch.cat([img.reshape(r, npix), d0[:, npix:]], 1)
+
+    # pass 2: one fused scatter over all K² offsets [R,K²,N]
+    dys = torch.arange(-f, f + 1, device=dev)
+    cy = iy[:, None] + dys.repeat_interleave(k)[None, :, None]
+    cx = ix[:, None] + dys.repeat(k)[None, :, None]
+    d2 = ((px[:, None] - cx.to(torch.float32)).square()
+          + (py[:, None] - cy.to(torch.float32)).square())
+    w_s = torch.exp(-d2 / (2.0 * sigma2)[:, None])
+    ok = ((cx >= 0) & (cx < res) & (cy >= 0) & (cy < res)
+          & in_front[:, None] & (w_s > 1e-4))
+    idx = torch.where(ok, cy * res + cx, npix)
+    # dn <= dmax wherever a centre covers the pixel, so the clamp at 0 is
+    # exact there (jnp.minimum's gradient, split at the tie); it keeps the
+    # dropped offsets (dummy entry, dmax -1) finite
+    expo = torch.minimum(
+        (dn[:, None] - torch.gather(dmax, 1, idx.reshape(r, -1))
+         .reshape(idx.shape)) / gamma,
+        torch.zeros((), dtype=torch.float32, device=dev))
+    w = torch.where(ok, w_s * torch.exp(expo), 0.0).reshape(-1)
+    flat = (idx + base[..., None]).reshape(-1)
+    cols_t = cols[:, None].expand(r, k * k, n, 3).reshape(-1, 3)
+    size = r * (npix + 1)
+    if deterministic:
+        seg = _QuantizedSums.apply(
+            flat, torch.cat([w[:, None] * cols_t, w[:, None]], 1), size)
+        acc, wacc = seg[:, :3], seg[:, 3]
+    else:
+        acc = torch.zeros((size, 3), dtype=torch.float32,
+                          device=dev).index_add(0, flat, w[:, None] * cols_t)
+        wacc = torch.zeros(size, dtype=torch.float32,
+                           device=dev).index_add(0, flat, w)
+    # background: a fixed unit weight at dn=0 (point_renderer.py:408)
+    bg_w = torch.exp(torch.tensor(-1.0, dtype=torch.float32,
+                                  device=dev) / gamma) + 1e-8
+    acc = acc.reshape(r, npix + 1, 3)[:, :npix]
+    wacc = wacc.reshape(r, npix + 1)[:, :npix]
+    return (acc / (wacc + bg_w)[..., None]).reshape(r, res, res, 3)
+
+
 def render_points(points: torch.Tensor, colors: torch.Tensor, radius,
                   camera: RenderCamera, gamma: float = 1e-2,
-                  footprint: int = 3, method: str = "slots",
-                  slots: int = 6) -> torch.Tensor:
+                  footprint: int = 3, deterministic: bool = False,
+                  method: str = "scatter", slots: int = 6) -> torch.Tensor:
     """Render points [R,N,3] (or [N,3]) with colours of the same shape ->
     images [R,res,res,3] (or [res,res,3]).
 
     radius: world-space splat radius (scalar or [...,N]); footprint: the
-    splat window's half-width in pixels (K = 2f+1).  Only the slotted
-    renderer is ported; the reference's default ``method="scatter"`` is
-    not on the pose path."""
-    if method != "slots":
-        raise NotImplementedError(
-            f"render method {method!r} is not ported (ROADMAP: "
-            f"footprint-scatter renderer); use method='slots'")
+    splat window's half-width in pixels (K = 2f+1).  method: 'scatter'
+    (the default, the reference's formulation; ``deterministic`` sums in
+    fixed point) or 'slots' (the slot table and kernels K4/K5, bitwise
+    repeatable by construction; the pose path's renderer)."""
+    if method not in ("scatter", "slots"):
+        raise ValueError(f"render method {method!r}: use 'scatter' or "
+                         f"'slots'")
     single = points.ndim == 2
-    pts = points[None] if single else points
+    pts = (points[None] if single else points).to(torch.float32)
     cols = colors.to(torch.float32)
     cols = (cols[None] if cols.ndim == 2 else cols).expand(pts.shape)
+    if method == "scatter":
+        img = _render_scatter(pts, cols, radius, camera, gamma, footprint,
+                              deterministic)
+        return img[0] if single else img
     res = camera.res
     px, py, dn, sigma2, in_front = _project_attrs(pts, radius, camera,
                                                   footprint)

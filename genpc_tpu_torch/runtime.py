@@ -13,15 +13,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def resolve_device(name, mesh_shape=None) -> torch.device:
-    """``cfg.device`` -> torch.device; raises when CUDA is asked for and
-    absent (a measurement never falls back to the CPU), and for a device
-    mesh (``cfg.mesh_shape``), which is not ported."""
-    if mesh_shape:
-        raise NotImplementedError("cfg.mesh_shape: device meshes are not "
-                                  "ported (ROADMAP: multi-GPU data "
-                                  "parallelism)")
-    dev = torch.device(name)
+def resolve_device(name, mesh=None) -> torch.device:
+    """``cfg.device`` -> torch.device, or with a device mesh
+    (``parallel.mesh.get_mesh``) the mesh's first device; raises when CUDA
+    is asked for and absent (a measurement never falls back to the
+    CPU)."""
+    dev = torch.device(name if mesh is None else mesh.devices.flat[0])
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {name!r} requested but torch.cuda.is_available() is "

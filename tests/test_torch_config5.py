@@ -23,7 +23,7 @@ import pytest
 import torch
 import torch_flux_ref as fr
 from torch_models_ref import precision, ref_params
-from torch_replay import REG_STEP_TOL, held, native_off
+from torch_replay import REG_STEP_TOL, held, hold_coarse_sweep, native_off
 from torch_trellis_ref import ref_trellis_draws, trellis_backends
 
 import genpc_tpu.config as jconfig
@@ -119,8 +119,9 @@ def test_config5_tiny_matches_the_reference(tmp_path):
     (FLUX -> RMBG -> TRELLIS, registration on): the port's FLUX images
     within the bf16 image bound of the reference's, the same TRELLIS
     meshes (face corners and colours within 1e-4), every registration
-    step on equal inputs (each but the coarse ICP sweep within
-    REG_STEP_TOL), and each scan's UHD within 1e-5; the port frees its
+    step on equal inputs within REG_STEP_TOL (the coarse ICP sweep
+    scan by scan, where a scan's candidate may part only at a printed
+    Kabsch tie), and each scan's UHD within 1e-5; the port frees its
     three backends."""
     flags = write_lidar_dataset(str(tmp_path), {"CAR": 2}, seed=0)["CAR"]
     trees = fr.trees(0)
@@ -173,11 +174,14 @@ def test_config5_tiny_matches_the_reference(tmp_path):
         print(f"config 5, {name}: inputs max |d| {err_in:.3e}, result "
               f"max |d| {err_out:.3e}")
         assert err_in == 0.0, name
-        # the coarse ICP sweep over a random-weight mesh's surface sample
-        # can end in another local minimum from the same inputs (ROADMAP
-        # queue 3): its result is printed, and the reference's goes on
         if name != "batched_coarse_sweep":
             assert err_out <= REG_STEP_TOL, name
+    # the sweep object by object: a scan whose candidate ICP meets a
+    # Kabsch tie (two inliers after the scale jump, a rank-1 H) may end
+    # in another minimum; the tie is printed, and every other scan is
+    # held within REG_STEP_TOL (ROADMAP queue 3)
+    sweep_args, _ = tapes["steps"]["batched_coarse_sweep"][0]
+    hold_coarse_sweep(*sweep_args, label="config 5")
     assert set(got) == set(ref) == set(flags)
     for f in flags:
         assert np.isfinite(got[f]["uhd"])

@@ -299,6 +299,19 @@ def test_knn_matches_reference():
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-6)
 
 
+@pytest.mark.parametrize("k", [2, 5])
+def test_knn_ties_at_the_kth_place_match_reference(k):
+    # points of an integer grid: many neighbours at exactly the k-th
+    # distance, of which lax.top_k takes the lowest indices
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32)
+    g = g[np.random.default_rng(8).permutation(len(g))]
+    dj, ij = jknn(jnp.asarray(g), jnp.asarray(g), k)
+    dt, it = knn(_t(g), _t(g), k)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+
+
 def test_outlier_mask_matches_reference():
     r = np.random.default_rng(7)
     pts = np.concatenate([r.normal(size=(2000, 3)) * 0.1,
@@ -320,3 +333,28 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda(fn):
     t = torch.zeros((1, 8, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fn(t)
+
+
+def test_rowsum_card_form_matches_plain_sums(monkeypatch):
+    # ops/rowsum's card form (rows padded to 16, sums over the last
+    # axis), run here on CPU tensors: the plain reductions' values within
+    # 1e-5 relative, their shapes, keepdim and gradients
+    from genpc_tpu_torch.ops import rowsum
+    r = np.random.default_rng(9)
+    x = _t(r.normal(size=(3, 5, 7, 3)).astype(np.float32))
+    a = _t(r.normal(size=(2, 4, 3)).astype(np.float32))
+    b = _t(r.normal(size=(2, 3, 5)).astype(np.float32))
+    plain = {"sum": x.sum((1, 2), keepdim=True), "mean": x.mean((1,)),
+             "std": x.std(dim=(1, 2), keepdim=True, correction=0),
+             "mm": a @ b, "last": x.sum(-1)}
+    monkeypatch.setattr(rowsum, "_on_card", lambda _x: True)
+    xg = x.clone().requires_grad_(True)
+    card = {"sum": rowsum.sum_dims(xg, (1, 2), keepdim=True),
+            "mean": rowsum.mean_dims(x, (1,)),
+            "std": rowsum.std_dims(x, (1, 2), keepdim=True),
+            "mm": rowsum.matmul(a, b), "last": rowsum.sum_last(x)}
+    for k, v in plain.items():
+        assert card[k].shape == v.shape, k
+        torch.testing.assert_close(card[k], v, rtol=1e-5, atol=1e-6)
+    card["sum"].sum().backward()
+    assert torch.equal(xg.grad, torch.ones_like(x))

@@ -250,8 +250,8 @@ def test_synthetic_depth2image_matches():
 
 def test_import_leaves_jax_out():
     # the port and every module in it, the per-object and Waymo entry
-    # points and the generative models among them, import no jax (only
-    # tests do)
+    # points, the generative models, the device mesh and the toolkit
+    # modules among them, import no jax (only tests do)
     code = (
         "import importlib, pkgutil, sys\n"
         "import genpc_tpu_torch as p\n"
@@ -267,7 +267,11 @@ def test_import_leaves_jax_out():
         "        'models.dit', 'models.qwen_vl', 'models.dit_depth',\n"
         "        'models.birefnet', 'models.rmbg', 'models.trellis',\n"
         "        'models.sf3d', 'models.ddnm', 'render.inpaint',\n"
-        "        'io.glb', 'ops.marching']\n"
+        "        'io.glb', 'ops.marching', 'parallel.mesh',\n"
+        "        'geometry.sh', 'geometry.densify', 'geometry.mesh_utils',\n"
+        "        'render.image_ops', 'metrics.image_metrics',\n"
+        "        'models.segmentation', 'metric_cli', 'vis',\n"
+        "        'utils_logging']\n"
         "missing = [n for n in need if 'genpc_tpu_torch.' + n\n"
         "           not in sys.modules]\n"
         "assert not missing, missing\n"

@@ -4,6 +4,7 @@ registration/pose_optim and the batched stage-3 steps) with the JAX
 reference on the CPU, on the same seeded numpy inputs."""
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ from genpc_tpu_torch.parallel import batched_runner as tbr
 from genpc_tpu_torch.registration import icp as ticp
 from genpc_tpu_torch.registration import pose_optim as tpose
 from genpc_tpu_torch.render.point_renderer import RenderCamera as TCamera
+from torch_replay import hold_coarse_sweep
 
 # the reference's package re-exports functions under its module names
 jicp = importlib.import_module("genpc_tpu.registration.icp")
@@ -220,6 +222,25 @@ def test_batched_coarse_sweep_matches():
     Tt, ct = tbr.batched_coarse_sweep(_t(src), _t(tgt), _t(scales), 0.5)
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-5)
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["config5_scan", "seeded"])
+def test_coarse_one_matches_or_ties(case):
+    """_coarse_one against the reference's, candidate by candidate, on
+    the config-5 scan whose sweep ended in another minimum (its 64-point
+    ICP inputs, tests/data) and on a seeded pair: every candidate within
+    REG_STEP_TOL but those that part at a Kabsch tie, which only the
+    scan has (scales 1.50 and 1.36: two inliers after the scale jump,
+    σ2/σ1 ~1e-8 of a rank-1 H)."""
+    if case == "seeded":
+        src, tgt = _icp_batch(60, n=64)
+    else:
+        d = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                 "config5_coarse_sweep_scan.npz"))
+        src, tgt = d["src"][None], d["tgt"][None]
+    scales = np.linspace(1.5, 0.8, 11).astype(np.float32)
+    ties = hold_coarse_sweep(src, tgt, scales, 0.5, label=case)
+    assert ties == ([(0, 0), (0, 2)] if case == "config5_scan" else [])
 
 
 def test_batched_fine_search_matches():

@@ -131,7 +131,8 @@ def test_render_and_grad_match_xla_slots(res):
         jnp.asarray(pts))
     pt = _t(pts).requires_grad_(True)
     img_t = tpr.render_points(pt, _t(cols), 0.02,
-                              tpr.RenderCamera.default(res), footprint=F)
+                              tpr.RenderCamera.default(res), footprint=F,
+                              method="slots")
     (img_t * _t(w)).sum().backward()
     assert _rel(img_t.detach().numpy(), img_j) <= 1e-5
     g_j = np.asarray(g_j)
@@ -144,10 +145,10 @@ def test_batched_render_equals_single_renders():
     cam = tpr.RenderCamera.default(48)
     batch = tpr.render_points(_t(np.stack([c[0] for c in clouds])),
                               _t(np.stack([c[1] for c in clouds])), 0.02,
-                              cam, footprint=F)
+                              cam, footprint=F, method="slots")
     for i, (p, c) in enumerate(clouds):
-        assert torch.equal(batch[i], tpr.render_points(_t(p), _t(c), 0.02,
-                                                       cam, footprint=F))
+        assert torch.equal(batch[i], tpr.render_points(
+            _t(p), _t(c), 0.02, cam, footprint=F, method="slots"))
 
 
 def test_render_and_grad_repeat_bitwise():
@@ -156,7 +157,8 @@ def test_render_and_grad_repeat_bitwise():
     outs = []
     for _ in range(2):
         p = _t(pts).requires_grad_(True)
-        img = tpr.render_points(p, _t(cols), 0.02, cam, footprint=F)
+        img = tpr.render_points(p, _t(cols), 0.02, cam, footprint=F,
+                                method="slots")
         img.square().sum().backward()
         outs.append((img.detach(), p.grad))
     assert torch.equal(outs[0][0], outs[1][0])
