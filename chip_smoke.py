@@ -226,6 +226,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _with_spans(fn):
+    """fn() inside a span recorder (``tracing.recording``): (its result,
+    {span: seconds, "span:counter": count})."""
+    from genpc_tpu_torch.tracing import recording
+    with recording() as rec:
+        out = fn()
+    return out, rec.flat()
+
+
 def cuda_ms(fn, reps: int = 3) -> float:
     """Median device time of fn() in ms: one warm-up, then reps timed runs.
     Each run is enqueued behind a device sleep of about 2 ms, so that the
@@ -1256,20 +1265,16 @@ def drive_per_object(root: str, flags, counters) -> dict:
     import numpy as np
     from genpc_tpu_torch.config import load_config
     from genpc_tpu_torch.main import run_pipeline
-    from genpc_tpu_torch.tracing import StageTimer
     cfg = load_config(device="cuda", **dict(REDWOOD,
                                             trust_aligned_completion=False))
     t0 = time.time()
     warm = run_pipeline(cfg, flags, root)
     log(f"per_object: warm-up pass {time.time() - t0:.2f} s")
-    timer = StageTimer("cuda")
-    results, wall, launches = _counted(
-        "per_object", counters, lambda: run_pipeline(cfg, flags, root,
-                                                     timer=timer))
+    (results, wall, launches), spans = _with_spans(lambda: _counted(
+        "per_object", counters, lambda: run_pipeline(cfg, flags, root)))
     log(f"per_object: timed pass {wall:.3f} s, "
-        f"{len(flags) / wall * 60:.3f} objects/min; spans (s, calls): "
-        + json.dumps({k: [round(t, 4), c]
-                      for k, (t, c) in timer.as_dict().items()}))
+        f"{len(flags) / wall * 60:.3f} objects/min; spans (s; counters): "
+        + json.dumps({k: round(v, 4) for k, v in spans.items()}))
     if set(results) != set(flags):
         fail("per_object: missing objects in the results")
     if not all(np.isfinite([m[k] for m in results.values()
@@ -1641,13 +1646,12 @@ def drive_controlnet(root: str, flags, counters) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t0 = time.time()
-        gen(cfg, dp, arts)
+        _, spans = _with_spans(lambda: gen(cfg, dp, arts))
         torch.cuda.synchronize()
         stages.append(dict(
             wall=time.time() - t0, base=base,
             peak=torch.cuda.max_memory_allocated(),
-            images=[np.array(a.image) for a in arts],
-            spans=dp.depth2image.timer.as_dict()))
+            images=[np.array(a.image) for a in arts], spans=spans))
 
     with patched((batched_runner, "_generate_images", recording)):
         t0 = time.time()
@@ -1665,8 +1669,8 @@ def drive_controlnet(root: str, flags, counters) -> dict:
         + json.dumps({k: round(v, 4) for k, v in timings.items()}))
     log(f"controlnet: generation stage {timed['wall']:.3f} s for "
         f"{len(flags)} images at {CONTROLNET['generate_res']}², "
-        f"{GEN_STEPS} steps: spans (s, calls) " + json.dumps(
-            {k: [round(t, 4), c] for k, (t, c) in timed["spans"].items()})
+        f"{GEN_STEPS} steps: spans (s; counters) " + json.dumps(
+            {k: round(v, 4) for k, v in timed["spans"].items()})
         + f"; {ev.ms_per_step():.3f} ms per denoise step (CUDA events); "
         f"peak allocated {timed['peak'] / 2**30:.3f} GiB ("
         f"{(timed['peak'] - timed['base']) / 2**30:.3f} GiB above the "
@@ -1711,13 +1715,13 @@ def drive_generate_standalone() -> None:
     b = ControlNetDepth(cfg)
     with _step_events() as ev:
         t0 = time.time()
-        img = b.generate(depth, "chair", size=1024,
-                         num_inference_steps=GEN_STEPS)
+        img, spans = _with_spans(lambda: b.generate(
+            depth, "chair", size=1024, num_inference_steps=GEN_STEPS))
         wall = time.time() - t0
     log(f"generate ControlNet 1024², {GEN_STEPS} steps: {wall:.3f} s, "
         f"{ev.ms_per_step():.3f} ms per denoise step (CUDA events); spans "
-        f"(s, calls) " + json.dumps({k: [round(t, 4), c] for k, (t, c)
-                                     in b.timer.as_dict().items()}))
+        f"(s; counters) " + json.dumps({k: round(v, 4)
+                                        for k, v in spans.items()}))
     if img.shape != (1024, 1024, 3) or not np.isfinite(img).all():
         fail("generate 1024²: bad image")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1753,13 +1757,13 @@ def drive_generate_standalone() -> None:
     a = ControlNetDepth(cfg, adapter=True)
     with _step_events() as ev:
         t0 = time.time()
-        img = a.generate(depth, "chair", size=512,
-                         num_inference_steps=GEN_STEPS)
+        img, spans = _with_spans(lambda: a.generate(
+            depth, "chair", size=512, num_inference_steps=GEN_STEPS))
         wall = time.time() - t0
     log(f"generate T2I-Adapter 512², {GEN_STEPS} steps: {wall:.3f} s, "
         f"{ev.ms_per_step():.3f} ms per denoise step (CUDA events); spans "
-        f"(s, calls) " + json.dumps({k: [round(t, 4), c] for k, (t, c)
-                                     in a.timer.as_dict().items()}))
+        f"(s; counters) " + json.dumps({k: round(v, 4)
+                                        for k, v in spans.items()}))
     if img.shape != (512, 512, 3) or not np.isfinite(img).all():
         fail("generate adapter 512²: bad image")
     a.release()
@@ -1855,11 +1859,11 @@ def drive_instantmesh(root: str, flags, counters) -> dict:
         rec = dict(base=torch.cuda.memory_allocated(), views=[], arts=arts,
                    t0=time.time())
         passes.append(rec)
-        stage2(self, arts)
+        _, spans = _with_spans(lambda: stage2(self, arts))
         torch.cuda.synchronize()
         rec.update(wall=time.time() - rec["t0"],
                    peak=torch.cuda.max_memory_allocated(),
-                   backend=self.image23d,
+                   backend=self.image23d, spans=spans,
                    meshes=[(len(a.complete_mesh.vertices),
                             len(a.complete_mesh.faces)) for a in arts])
 
@@ -1896,9 +1900,8 @@ def drive_instantmesh(root: str, flags, counters) -> dict:
     log(f"instantmesh: image-to-3D stage {timed['wall']:.3f} s for {b} "
         f"objects in one chunk (image23d_batch {b}), "
         f"{timed['backend'].mv_steps} multiview steps, a "
-        f"{timed['backend'].lrm_cfg.grid_res}³ grid: spans (s, calls) "
-        + json.dumps({k: [round(t, 4), c] for k, (t, c)
-                      in timed["backend"].timer.as_dict().items()})
+        f"{timed['backend'].lrm_cfg.grid_res}³ grid: spans (s; counters) "
+        + json.dumps({k: round(v, 4) for k, v in timed["spans"].items()})
         + f"; {step_ms:.3f} ms per multiview step over {b} objects "
         f"({step_ms / b:.3f} an object; CUDA events); peak allocated "
         f"{timed['peak'] / 2**30:.3f} GiB ({above / 2**30:.3f} GiB above "
@@ -2062,10 +2065,9 @@ def instantmesh_real_surface(root: str, run: dict) -> None:
         new.append(ObjectArtifacts(
             flag=art.flag, color_xyz=art.color_xyz,
             color_rgb=art.color_rgb, complete_mesh=mesh))
-    timings = {}
     torch.cuda.synchronize()
     t0 = time.time()
-    batched_reg(cfg, new, timings=timings)
+    _, timings = _with_spans(lambda: batched_reg(cfg, new))
     torch.cuda.synchronize()
     wall = time.time() - t0
     log(f"instantmesh real surface ({res}³ grid of {IM_SHELL} minus the "
@@ -2160,19 +2162,17 @@ def drive_qwen(root: str, flags, counters) -> dict:
         torch.cuda.reset_peak_memory_stats()
         rec = dict(base=torch.cuda.memory_allocated(), t0=time.time())
         passes.append(rec)
-        gen(cfg, dp, arts)
+        _, spans = _with_spans(lambda: gen(cfg, dp, arts))
         torch.cuda.synchronize()
         rec.update(wall=time.time() - rec["t0"],
                    peak=torch.cuda.max_memory_allocated(),
-                   images=[np.array(a.image) for a in arts])
+                   images=[np.array(a.image) for a in arts], spans=spans)
 
     def rec_release(owner, attr):
-        backend = getattr(owner, attr, None)
         release(owner, attr)
         if attr == "depth2image":
             torch.cuda.synchronize()
-            passes[-1].update(after_release=torch.cuda.memory_allocated(),
-                              spans=backend.timer.as_dict())
+            passes[-1].update(after_release=torch.cuda.memory_allocated())
 
     with patched((batched_runner, "_generate_images", recording),
                  (batched_runner, "_release_backend", rec_release)):
@@ -2194,9 +2194,8 @@ def drive_qwen(root: str, flags, counters) -> dict:
             {k: round(v, 4) for k, v in timings.items()}))
     log(f"qwen: generation stage {timed['wall']:.3f} s for {b} images at "
         f"{QWEN['generate_res']}² in generate_obj_batch "
-        f"{QWEN['generate_obj_batch']} chunks: spans (s, calls) "
-        + json.dumps({k: [round(t, 4), c]
-                      for k, (t, c) in timed["spans"].items()})
+        f"{QWEN['generate_obj_batch']} chunks: spans (s; counters) "
+        + json.dumps({k: round(v, 4) for k, v in timed["spans"].items()})
         + f"; a sampler step over {b} objects (two MMDiT passes; CUDA "
         f"events) {step_ms:.3f} ms as a CUDA graph replay (median of "
         f"{len(replays)}), {first:.3f} ms for the first (eager warm-up, "
@@ -2447,7 +2446,8 @@ def drive_flux(root: str, flags, counters) -> dict:
                    spans={})
         passes.append(rec)
         t0 = time.time()
-        stage1(cfg, arts, viewpoints, core=core, dp=dp, mesh=mesh)
+        _, rec["spans"]["inpainter"] = _with_spans(lambda: stage1(
+            cfg, arts, viewpoints, core=core, dp=dp, mesh=mesh))
         torch.cuda.synchronize()
         rec["stage1_wall"] = time.time() - t0
         rec["weights"]["inpainter"] = _backend_bytes(dp.inpainter.backend)
@@ -2456,20 +2456,19 @@ def drive_flux(root: str, flags, counters) -> dict:
     def rec_gen(cfg, dp, arts):
         rec = passes[-1]
         t0 = time.time()
-        gen(cfg, dp, arts)
+        _, rec["spans"]["depth2image"] = _with_spans(
+            lambda: gen(cfg, dp, arts))
         torch.cuda.synchronize()
         rec["gen_wall"] = time.time() - t0
         rec["weights"]["depth2image"] = _backend_bytes(dp.depth2image)
         rec["images"] = [np.array(a.image) for a in arts]
 
     def rec_release(owner, attr):
-        backend = getattr(owner, attr, None)
         release(owner, attr)
         if attr in ("inpainter", "depth2image"):
             torch.cuda.synchronize()
             rec = passes[-1]
             rec["after"][attr] = torch.cuda.memory_allocated()
-            rec["spans"][attr] = backend.timer.as_dict()
             rec["peak"] = torch.cuda.max_memory_allocated()
 
     with patched((batched_runner, "batched_stage1", rec_stage1),
@@ -2500,13 +2499,13 @@ def drive_flux(root: str, flags, counters) -> dict:
         f"{paint_ms[0]:.3f} ms, then median "
         f"{statistics.median(paint_ms[1:]):.3f} ms, "
         f"{statistics.median(paint_ms[1:]) / 30:.3f} ms a step); inpainter "
-        f"spans (s, calls) " + json.dumps(
-            {k: [round(t, 4), c]
-             for k, (t, c) in timed["spans"]["inpainter"].items()}))
+        f"spans (s; counters) " + json.dumps(
+            {k: round(v, 4)
+             for k, v in timed["spans"]["inpainter"].items()}))
     log(f"flux: generation stage {timed['gen_wall']:.3f} s for {b} images "
         f"at {FLUX['generate_res']}² in generate_obj_batch "
-        f"{FLUX['generate_obj_batch']} chunks: spans (s, calls) "
-        + json.dumps({k: [round(t, 4), c] for k, (t, c)
+        f"{FLUX['generate_obj_batch']} chunks: spans (s; counters) "
+        + json.dumps({k: round(v, 4) for k, v
                       in timed["spans"]["depth2image"].items()})
         + f"; a sampler step over {b} objects (one MMDiT pass; CUDA "
         f"events) {step_ms:.3f} ms as a CUDA graph replay (median of "
@@ -2901,11 +2900,13 @@ def drive_config5(root: str, flags, counters) -> dict:
         stage1(cfg, arts, viewpoints, core=core, dp=dp, mesh=mesh)
 
     def rec_gen(cfg, dp, arts):
-        gen(cfg, dp, arts)
+        _, passes[-1]["spans"]["depth2image"] = _with_spans(
+            lambda: gen(cfg, dp, arts))
         passes[-1]["images"] = [np.array(a.image) for a in arts]
 
     def rec_stage2(self, arts):
-        stage2(self, arts)
+        _, passes[-1]["spans"]["stage2"] = _with_spans(
+            lambda: stage2(self, arts))
         rec = passes[-1]
         rec["mattes"] = [np.array(a.image_nobg[..., 3]) for a in arts]
         rec["meshes"] = [(len(a.complete_mesh.vertices),
@@ -2934,7 +2935,6 @@ def drive_config5(root: str, flags, counters) -> dict:
             torch.cuda.synchronize()
             rec = passes[-1]
             rec["after"][attr] = torch.cuda.memory_allocated()
-            rec["spans"][attr] = backend.timer.as_dict()
             rec["peak"] = torch.cuda.max_memory_allocated()
 
     def one_pass():
@@ -2962,9 +2962,9 @@ def drive_config5(root: str, flags, counters) -> dict:
         f"{b / wall * 60:.3f} objects/min; TRELLIS flows (ms for the "
         f"loop incl. its first step's graph capture, steps; CUDA events) "
         + json.dumps(flows))
-    for attr, spans in timed["spans"].items():
-        log(f"config5: {attr} spans (s, calls) " + json.dumps(
-            {k: [round(t, 4), c] for k, (t, c) in spans.items()}))
+    for stage, spans in timed["spans"].items():
+        log(f"config5: {stage} spans (s; counters) " + json.dumps(
+            {k: round(v, 4) for k, v in spans.items()}))
     gib = 2 ** 30
     log(f"config5: peak allocated over the pass {timed['peak'] / gib:.3f} "
         f"GiB; memory allocated {timed['base'] / 2**20:.1f} MiB before "
@@ -3119,16 +3119,17 @@ def drive_sf3d_full(run: dict) -> None:
 
     b.density_grid = timed_grid
     t0 = time.time()
-    (mesh,) = b.generate_meshes_batch([art.flag], [art.image_nobg])
+    (mesh,), spans = _with_spans(lambda: b.generate_meshes_batch(
+        [art.flag], [art.image_nobg]))
     wall = time.time() - t0
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    spans = {k: [round(t, 4), c] for k, (t, c) in b.timer.as_dict().items()}
+    spans = {k: round(v, 4) for k, v in spans.items()}
     log(f"sf3d at full width, one image: {wall:.3f} s; the device "
         f"program (triplanes, {b.net_cfg.grid_res}³"
         f" SDF grid) {ev[-1][0].elapsed_time(ev[-1][1]):.3f} ms (CUDA "
         f"events); a mesh of {len(mesh.vertices)} vertices and "
-        f"{len(mesh.faces)} faces; spans (s, calls) "
+        f"{len(mesh.faces)} faces; spans (s; counters) "
         + json.dumps(spans) + f"; peak allocated {peak / 2**30:.3f} GiB")
     b.release()
     torch.cuda.synchronize()

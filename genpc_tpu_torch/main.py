@@ -43,6 +43,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional
@@ -58,20 +59,17 @@ from genpc_tpu_torch.pipeline.depth_prompting import DepthPrompting
 from genpc_tpu_torch.pipeline.registration import reg
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer, trace
+from genpc_tpu_torch.tracing import recording, span, trace
 
 
 def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
                  gt_dir: Optional[str] = None, with_metric: bool = True,
-                 with_emd: bool = True,
-                 timer: Optional[StageTimer] = None
-                 ) -> Dict[str, Dict[str, float]]:
+                 with_emd: bool = True) -> Dict[str, Dict[str, float]]:
     """Per-object pipeline over flags; returns {flag: {'cd', 'emd'}} for
-    the objects that finished and have a GT.  Spans (load, stage1,
-    stage2, stage3, metric) go to ``timer``."""
+    the objects that finished and have a GT.  Spans (``tracing``): load,
+    stage1, stage2, stage3, metric, one each an object."""
     mesh = get_mesh(cfg)
     device = resolve_device(cfg.device, mesh)
-    timer = timer or StageTimer(device)
     gt_dir = gt_dir or os.path.join(data_dir, "GT")
     dp = DepthPrompting(cfg)
     sa = ScaleAdapter(cfg)
@@ -80,10 +78,10 @@ def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
     arts = {}
     for flag in flags:
         print(f"Processing {flag}...")
-        with timer.span("load"):
+        with span("load", sync=device):
             xyz, rgb = load_xyz(os.path.join(data_dir, f"{flag}.ply"))
             art = input_artifacts(flag, xyz, rgb, n_in)
-        with timer.span("stage1"):
+        with span("stage1", sync=device):
             dp.get_image(art)
         arts[flag] = art
 
@@ -92,9 +90,9 @@ def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
         # per-object fault isolation: one bad scan must not end the run
         # (the reference's drivers print and continue)
         try:
-            with timer.span("stage2"):
+            with span("stage2", sync=device):
                 sa.scale_adapter(art)
-            with timer.span("stage3"):
+            with span("stage3", sync=device):
                 reg(cfg, art, cd_inv_weight=0.5, diff_init=True,
                     reg_fine_xyz=True)
         except Exception as e:  # noqa: BLE001
@@ -103,7 +101,7 @@ def run_pipeline(cfg: Config, flags: List[str], data_dir: str,
         if with_metric:
             gt_path = os.path.join(gt_dir, f"{flag}.ply")
             if os.path.exists(gt_path):
-                with timer.span("metric"):
+                with span("metric", sync=device):
                     gt, _ = load_xyz(gt_path)
                     gt = apply_frame_fix(flag, gt)
                     m = evaluate_pair(art.fused_xyz, gt,
@@ -169,7 +167,8 @@ def main(argv=None):
                     help="the mesh's devices in order, repeats allowed, "
                          "e.g. cuda:0,cuda:0,cuda:0,cuda:0")
     ap.add_argument("--timings", action="store_true",
-                    help="print the per-stage timing table")
+                    help="record the spans (tracing) and print their "
+                         "table")
     ap.add_argument("--profile", default=None,
                     help="torch.profiler trace dir (Chrome trace)")
     args = ap.parse_args(argv)
@@ -209,9 +208,9 @@ def main(argv=None):
     flags = args.flags or [f for f in REDWOOD_FLAGS if os.path.exists(
         os.path.join(args.data_dir, f"{f}.ply"))]
 
-    timer = StageTimer(resolve_device(cfg.device, get_mesh(cfg)))
+    timed = recording() if args.timings else contextlib.nullcontext()
     start = time.time()
-    with trace(args.profile):
+    with trace(args.profile), timed as rec:
         if args.batched:
             from genpc_tpu_torch.parallel.batched_runner import run_batched
             results = run_batched(cfg, flags, args.data_dir, args.gt_dir,
@@ -222,11 +221,11 @@ def main(argv=None):
         else:
             run_pipeline(cfg, flags, args.data_dir, args.gt_dir,
                          with_metric=not args.no_metric,
-                         with_emd=not args.no_emd, timer=timer)
+                         with_emd=not args.no_emd)
     wall = time.time() - start
-    if args.timings:
+    if rec is not None:
         print()
-        timer.report()
+        rec.report()
     print(f"\n{len(flags)} objects in {wall:.1f}s "
           f"({len(flags) / wall * 60:.2f} objects/min)")
 

@@ -41,7 +41,7 @@ from genpc_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from genpc_tpu_torch.models.weights import (
     load_clip_towers, load_sdxl_controlnet, materialize)
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer
+from genpc_tpu_torch.tracing import count, span
 
 POSITIVE_TEMPLATE = ("A photo of {category}, 3d model, high resolution,"
                      "high quality,highly detailed,highly realistic,"
@@ -151,8 +151,6 @@ class ControlNetDepth:
             weights_dir=self.cfg.get("weights_dir"), device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        #: spans of generate: init, prompt, denoise, decode
-        self.timer = StageTimer(self.device)
         self._ready = False
         self._graphs: Dict[tuple, GraphedCall] = {}
 
@@ -308,9 +306,9 @@ class ControlNetDepth:
         """Depth [3,H,W] or [H,W,3] float in [0,1] -> RGB [size,size,3]."""
         cond = self.prepare_depth(depth, size)
         if not self._ready:
-            with self.timer.span("init"):
+            with span("init", sync=self.device):
                 self.init_params()
-        with self.timer.span("prompt"):
+        with span("prompt", sync=self.device):
             conds = self.encode_prompts(get_category(category_or_flag), size)
         h = size // self.factor
         shape = (1, self.unet_cfg.in_channels, h, h)
@@ -318,10 +316,11 @@ class ControlNetDepth:
                               device=self.device)
         noises = torch.randn((num_inference_steps,) + shape,
                              generator=self.generator, device=self.device)
-        with self.timer.span("denoise"):
+        with span("denoise", sync=self.device):
+            count("steps", num_inference_steps)
             lat = self.denoise_latents(cond, *conds, latents, noises,
                                        guidance=5.0,
                                        control_scale=controlnet_conditioning_scale)
-        with self.timer.span("decode"):
+        with span("decode", sync=self.device):
             img = self.decode(lat)
         return img[0].permute(1, 2, 0).cpu().numpy()

@@ -33,7 +33,7 @@ from genpc_tpu_torch.models.layers import BF16, F32
 from genpc_tpu_torch.models.schedulers import DDIM, at
 from genpc_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer
+from genpc_tpu_torch.tracing import count, span
 
 #: the random weights' seed (the reference initialises from PRNGKey(0))
 WEIGHT_SEED = 0
@@ -64,8 +64,6 @@ class DDNMInpainter:
         self._ready = False
         self._calls = 0
         self._graphs: Dict[tuple, GraphedCall] = {}
-        #: spans of inpaint: init, inpaint (the sampler); and release
-        self.timer = StageTimer(self.device)
 
     def models(self) -> Dict[str, nn.Module]:
         """The inpainter's model by kind (``weights.from_flax``'s name)."""
@@ -91,7 +89,7 @@ class DDNMInpainter:
     def release(self) -> None:
         """Free the parameters (back to the meta device), the step graphs
         and the allocator's cache; the next call materialises them anew."""
-        with self.timer.span("release"):
+        with span("release", sync=self.device):
             self._graphs.clear()
             self.unet.to_empty(device="meta")
             self._ready = False
@@ -148,14 +146,15 @@ class DDNMInpainter:
         if m.ndim == 3:
             m = m.max(axis=0) if m.shape[0] in (1, 3) else m.max(axis=-1)
         if not self._ready:
-            with self.timer.span("init"):
+            with span("init", sync=self.device):
                 self.init_params()
         known = torch.from_numpy(np.ascontiguousarray(
             (x * 2 - 1).transpose(2, 0, 1))[None]).to(self.device)
         mask = torch.from_numpy((1.0 - (m > 0.5)).astype(np.float32))[
             None, None].to(self.device)
         noise = self.paint_draws(tuple(known.shape))
-        with self.timer.span("inpaint"):
+        with span("inpaint", sync=self.device):
+            count("steps", self.steps)
             out = self.inpaint_image(known, mask, noise)
             out = torch.clamp(out[0] / 2 + 0.5, 0, 1).permute(1, 2, 0)
             out = out.cpu().numpy()

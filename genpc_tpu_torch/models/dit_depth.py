@@ -57,7 +57,7 @@ from genpc_tpu_torch.models.schedulers import FlowMatchEuler, at, cfg_combine
 from genpc_tpu_torch.models.t5 import T5PromptEncoder
 from genpc_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer
+from genpc_tpu_torch.tracing import count, span
 
 QWEN_PROMPT = (
     "A highly realistic {category} with a common, ordinary appearance, "
@@ -146,9 +146,6 @@ class DiTDepthEdit:
         self.seed = seed
         self._noise_ctr = 0
         self.steps, self.guidance = SETTINGS[variant]
-        #: spans of generate_batch: <tower>_init, encode, dit_init,
-        #: denoise, decode; and release
-        self.timer = StageTimer(self.device)
         self._ready = False
         self._graphs: Dict[tuple, GraphedCall] = {}
 
@@ -187,7 +184,7 @@ class DiTDepthEdit:
         """Free the parameters of every model (back to the meta device),
         the prompt towers included, the step graphs and the allocator's
         cache; the next call materialises them anew."""
-        with self.timer.span("release"):
+        with span("release", sync=self.device):
             self._graphs.clear()
             for mod in (self.model, self.vae):
                 mod.to_empty(device="meta")
@@ -319,10 +316,10 @@ class DiTDepthEdit:
         """The prompt towers, then the MMDiT and VAE, materialised where
         they are not (spans ``<tower>_init`` and ``dit_init``)."""
         if not self.tower.ready:
-            with self.timer.span(f"{self.tower_name}_init"):
+            with span(f"{self.tower_name}_init", sync=self.device):
                 self.tower.init_params()
         if not self._ready:
-            with self.timer.span("dit_init"):
+            with span("dit_init", sync=self.device):
                 self.init_dit()
 
     def generate_batch(self, depths, categories_or_flags: Sequence[str],
@@ -334,14 +331,15 @@ class DiTDepthEdit:
         depths01 = np.stack([self.prep_depth(d, size) for d in depths])
         cats: List[str] = [get_category(f) for f in categories_or_flags]
         self.ensure_ready()
-        with self.timer.span("encode"):
+        with span("encode", sync=self.device):
             cond = self.encode_prompts(cats, depths01)
         latents = self.draws(len(depths01), size // self.factor)
-        with self.timer.span("denoise"):
+        steps = num_inference_steps or self.steps
+        with span("denoise", sync=self.device):
+            count("steps", steps)
             lat = self.denoise_latents(self.cond_latents(depths01), cond,
-                                       latents,
-                                       num_inference_steps or self.steps)
-        with self.timer.span("decode"):
+                                       latents, steps)
+        with span("decode", sync=self.device):
             img = self.decode(lat)
         return img.permute(0, 2, 3, 1).cpu().numpy()
 
@@ -360,9 +358,6 @@ class FluxInpainter:
     def __init__(self, cfg=None, seed: int = 0):
         self.backend = DiTDepthEdit(cfg, variant="flux", seed=seed)
         self.device = self.backend.device
-        #: the backend's timer; paint adds the span ``inpaint`` (the
-        #: sampler, the VAE encode and decode)
-        self.timer = self.backend.timer
         self._calls = 0
 
     def release(self) -> None:
@@ -429,10 +424,11 @@ class FluxInpainter:
         if m.ndim == 3:
             m = m.max(axis=0) if m.shape[0] in (1, 3) else m.max(axis=-1)
         be.ensure_ready()
-        with self.timer.span("encode"):
+        with span("encode", sync=self.device):
             txt, pooled = be.encode_flux([prompt])
         noise = self.paint_draws(x.shape[0] // be.factor)
-        with self.timer.span("inpaint"):
+        with span("inpaint", sync=self.device):
+            count("steps", steps)
             known = torch.from_numpy(np.ascontiguousarray(
                 (x * 2 - 1).transpose(2, 0, 1))[None]).to(self.device)
             out = self.inpaint_image(known, torch.from_numpy(m).to(

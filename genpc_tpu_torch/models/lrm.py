@@ -60,7 +60,7 @@ from genpc_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from genpc_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from genpc_tpu_torch.ops.marching import marching_tetrahedra
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer
+from genpc_tpu_torch.tracing import count, span
 
 #: the random weights' seed (the reference initialises from PRNGKey(0)
 #: whatever the backend's seed)
@@ -463,9 +463,6 @@ class InstantMeshBackend:
         self.ramping: Optional[torch.Tensor] = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        #: spans of generate_meshes_batch: init, context, denoise, decode,
-        #: grid, marching, colors; and release
-        self.timer = StageTimer(self.device)
         self._graphs: Dict[tuple, GraphedCall] = {}
 
     # ------------------------------------------------------------------
@@ -501,7 +498,7 @@ class InstantMeshBackend:
         """Free the parameters of every model (back to the meta device),
         the step graphs and the allocator's cache; the next call
         materialises them anew."""
-        with self.timer.span("release"):
+        with span("release", sync=self.device):
             self._graphs.clear()
             for mod in self.models().values():
                 mod.to_empty(device="meta")
@@ -638,27 +635,28 @@ class InstantMeshBackend:
         condition latents, the multiview loop, the decode and the density
         grids each run once over the [B, ...] batch."""
         if not self.ready:
-            with self.timer.span("init"):
+            with span("init", sync=self.device):
                 self.init_params()
         imgs01 = np.stack([self.prep_image(im) for im in images])
-        with self.timer.span("context"):
+        with span("context", sync=self.device):
             ctx = self.encode_context(imgs01)
             x = torch.from_numpy(imgs01.transpose(0, 3, 1, 2).copy())
             cond = self.encode_condition(x.to(self.device) * 2 - 1)
         latents, cond_noises, step_noises = self.draws(len(images))
-        with self.timer.span("denoise"):
+        with span("denoise", sync=self.device):
+            count("steps", len(step_noises))
             lat = self.denoise_latents(cond, ctx, latents, cond_noises,
                                        step_noises)
-        with self.timer.span("decode"):
+        with span("decode", sync=self.device):
             views = self.decode(lat)
-        with self.timer.span("grid"):
+        with span("grid", sync=self.device):
             planes, sdf = self.density_grid(views,
                                             self.cameras(len(images)))
         meshes = []
         for i in range(len(images)):
-            with self.timer.span("marching"):
+            with span("marching", sync=self.device):
                 verts, faces = mesh_from_sdf(sdf[i])
-            with self.timer.span("colors"):
+            with span("colors", sync=self.device):
                 rgb = self.vertex_colors(planes[i], verts)
             meshes.append(Mesh(verts, faces, rgb))
         return meshes

@@ -24,7 +24,7 @@ import torch
 from genpc_tpu_torch.models.birefnet import BiRefNet, BiRefNetConfig
 from genpc_tpu_torch.models.layers import BF16, F32
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer
+from genpc_tpu_torch.tracing import span
 
 #: the random weights' seed (the reference initialises from its seed, 0)
 WEIGHT_SEED = 0
@@ -43,8 +43,6 @@ class RMBGMatting:
         with torch.device("meta"):
             self.net = BiRefNet(self.net_cfg)
         self._ready = False
-        #: spans: init, matte (one device forward), release
-        self.timer = StageTimer(self.device)
 
     def models(self) -> Dict[str, torch.nn.Module]:
         """The backend's model by kind (``weights.from_flax``'s name)."""
@@ -69,7 +67,7 @@ class RMBGMatting:
     def release(self) -> None:
         """Free the parameters (back to the meta device) and the
         allocator's cache; the next call materialises them anew."""
-        with self.timer.span("release"):
+        with span("release", sync=self.device):
             self.net.to_empty(device="meta")
             self._ready = False
             if self.device.type == "cuda":
@@ -83,7 +81,7 @@ class RMBGMatting:
     def __call__(self, image: np.ndarray) -> np.ndarray:
         from PIL import Image
         if not self._ready:
-            with self.timer.span("init"):
+            with span("init", sync=self.device):
                 self.init_params()
         img = np.asarray(image, np.float32)
         if img.shape[-1] == 4:
@@ -95,7 +93,7 @@ class RMBGMatting:
             (s, s), Image.BILINEAR), np.float32) / 255.0
         x = torch.from_numpy(np.ascontiguousarray(
             (resized - 0.5).transpose(2, 0, 1))[None]).to(self.device)
-        with self.timer.span("matte"):
+        with span("matte", sync=self.device):
             matte = self.matte(x)[0, 0].cpu().numpy()
         m8 = (np.clip(matte, 0, 1) * 255).astype(np.uint8)
         matte = np.asarray(Image.fromarray(m8).resize(

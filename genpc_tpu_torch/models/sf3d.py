@@ -30,7 +30,7 @@ from genpc_tpu_torch.models.lrm import (
     DinoViT, LRMConfig, SynthesizerDecoder, TriplaneTransformer,
     grid_points, mesh_from_sdf, sample_triplane_concat)
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer
+from genpc_tpu_torch.tracing import span
 
 #: the random weights' seed (the reference initialises from PRNGKey(0))
 WEIGHT_SEED = 0
@@ -88,9 +88,6 @@ class SF3DBackend:
         with torch.device("meta"):
             self.net = SF3DNet(self.net_cfg)
         self._ready = False
-        #: spans of generate_meshes_batch: init, grid, marching, colors;
-        #: and release
-        self.timer = StageTimer(self.device)
 
     def models(self) -> Dict[str, nn.Module]:
         """The backend's model by kind (``weights.from_flax``'s name)."""
@@ -115,7 +112,7 @@ class SF3DBackend:
     def release(self) -> None:
         """Free the parameters (back to the meta device) and the
         allocator's cache; the next call materialises them anew."""
-        with self.timer.span("release"):
+        with span("release", sync=self.device):
             self.net.to_empty(device="meta")
             self._ready = False
             if self.device.type == "cuda":
@@ -144,18 +141,18 @@ class SF3DBackend:
         the SDF grids run once over the [B, ...] batch."""
         from genpc_tpu_torch.models.backends import prep_rgb
         if not self._ready:
-            with self.timer.span("init"):
+            with span("init", sync=self.device):
                 self.init_params()
         imgs = np.stack([prep_rgb(im, self.net_cfg.img_size)
                          for im in images])
-        with self.timer.span("grid"):
+        with span("grid", sync=self.device):
             x = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy())
             planes, sdf = self.density_grid(x.to(self.device) * 2 - 1)
         meshes = []
         for i in range(len(images)):
-            with self.timer.span("marching"):
+            with span("marching", sync=self.device):
                 verts, faces = mesh_from_sdf(sdf[i])
-            with self.timer.span("colors"):
+            with span("colors", sync=self.device):
                 rgb = self.vertex_colors(planes[i], verts)
             meshes.append(Mesh(verts, faces, rgb))
         return meshes

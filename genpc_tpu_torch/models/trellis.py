@@ -51,7 +51,7 @@ from genpc_tpu_torch.models.layers import (
 from genpc_tpu_torch.models.lrm import mesh_from_sdf
 from genpc_tpu_torch.models.schedulers import FlowMatchEuler, at
 from genpc_tpu_torch.runtime import resolve_device
-from genpc_tpu_torch.tracing import StageTimer
+from genpc_tpu_torch.tracing import span
 
 #: the random weights' seed (the reference initialises from PRNGKey(0)
 #: whatever the backend's seed)
@@ -205,9 +205,6 @@ class TrellisBackend:
         self._ready = False
         self._objects = 0
         self._graphs: Dict[tuple, GraphedCall] = {}
-        #: spans of generate_meshes_batch: init, encode, struct, slat,
-        #: decode, marching, colors; and release
-        self.timer = StageTimer(self.device)
 
     def models(self) -> Dict[str, nn.Module]:
         """The backend's model by kind (``weights.from_flax``'s name)."""
@@ -233,7 +230,7 @@ class TrellisBackend:
     def release(self) -> None:
         """Free the parameters (back to the meta device), the step graphs
         and the allocator's cache; the next call materialises them anew."""
-        with self.timer.span("release"):
+        with span("release", sync=self.device):
             self._graphs.clear()
             self.net.to_empty(device="meta")
             self._ready = False
@@ -285,17 +282,17 @@ class TrellisBackend:
         tc = self.tc
         b, r, k = imgs.shape[0], tc.slat_res, tc.sdf_cells
         sched = FlowMatchEuler(self.steps, device=imgs.device)
-        with self.timer.span("encode"):
+        with span("encode", sync=self.device):
             tok = self.net.encoder(imgs)
-        with self.timer.span("struct"):
+        with span("struct", sync=self.device):
             occ_lat = self._flow("struct", struct_noise, tok, None, sched)
         s = tc.struct_res
         occ = _repeat3(torch.sigmoid(occ_lat[..., 0]).reshape(b, s, s, s),
                        r // s)
         occ_tok = occ.reshape(b, -1, 1)
-        with self.timer.span("slat"):
+        with span("slat", sync=self.device):
             slat = self._flow("slat", slat_noise, tok, occ_tok, sched)
-        with self.timer.span("decode"):
+        with span("decode", sync=self.device):
             sdf_loc, rgb = self.net.decoder(slat * occ_tok)
             sdf = sdf_loc.reshape(b, r, r, r, k, k, k).permute(
                 0, 1, 4, 2, 5, 3, 6).reshape(b, r * k, r * k, r * k)
@@ -318,7 +315,7 @@ class TrellisBackend:
         batch; marching and colouring loop over the objects."""
         from genpc_tpu_torch.models.backends import prep_rgb
         if not self._ready:
-            with self.timer.span("init"):
+            with span("init", sync=self.device):
                 self.init_params()
         imgs = np.stack([prep_rgb(im, self.tc.img_size) for im in images])
         x = torch.from_numpy(imgs.transpose(0, 3, 1, 2).copy()).to(
@@ -328,9 +325,9 @@ class TrellisBackend:
         rgb = rgb.cpu().numpy()
         meshes = []
         for i in range(len(images)):
-            with self.timer.span("marching"):
+            with span("marching", sync=self.device):
                 verts, faces = mesh_from_sdf(sdf[i])
-            with self.timer.span("colors"):
+            with span("colors", sync=self.device):
                 cols = self.vertex_colors(verts, rgb[i])
             meshes.append(Mesh(verts, faces, cols))
         return meshes

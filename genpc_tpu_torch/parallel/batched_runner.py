@@ -47,7 +47,6 @@ import functools
 import gc
 import math
 import os
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -77,6 +76,7 @@ from genpc_tpu_torch.registration.fusion import fuse_clouds_batched
 from genpc_tpu_torch.registration.pose_optim import (
     POSE_CHUNK, optimize_all_starts, pick_transforms)
 from genpc_tpu_torch.runtime import resolve_device
+from genpc_tpu_torch.tracing import recording, span
 
 POSE_N = 2048
 ICP_N = 2048
@@ -224,26 +224,29 @@ def _fuse_sharded(sources, targets, source_colors, target_colors, devices,
 
 def _fuse_aligned(cfg, arts, devices) -> None:
     """Fuse the aligned completions with their partials (one FPS launch
-    over each shard of the batch)."""
+    over each shard of the batch): spans ``reg_prep`` (the resample) and
+    ``reg_fusion``."""
     tgts, tgt_rgbs = [], []
-    for art in arts:
-        tgt, tgt_rgb = resample_fixed(
-            art.complete_xyz, int(cfg.get("glb_sample_points", 163840)),
-            art.complete_rgb)
-        tgts.append(tgt.astype(np.float32))
-        tgt_rgbs.append(np.asarray(tgt_rgb, np.float32)
-                        if tgt_rgb is not None else None)
-    fused = _fuse_sharded(
-        [np.asarray(a.color_xyz, np.float32) for a in arts], tgts,
-        [np.asarray(a.color_rgb, np.float32) for a in arts], tgt_rgbs,
-        devices, num_points=int(cfg.get("fused_points", 20000)))
+    with span("reg_prep", sync=devices[0]):
+        for art in arts:
+            tgt, tgt_rgb = resample_fixed(
+                art.complete_xyz, int(cfg.get("glb_sample_points", 163840)),
+                art.complete_rgb)
+            tgts.append(tgt.astype(np.float32))
+            tgt_rgbs.append(np.asarray(tgt_rgb, np.float32)
+                            if tgt_rgb is not None else None)
+    with span("reg_fusion", sync=devices[0]):
+        fused = _fuse_sharded(
+            [np.asarray(a.color_xyz, np.float32) for a in arts], tgts,
+            [np.asarray(a.color_rgb, np.float32) for a in arts], tgt_rgbs,
+            devices, num_points=int(cfg.get("fused_points", 20000)))
     for art, (pts, cols) in zip(arts, fused):
         art.fused_xyz, art.fused_rgb = pts, cols
 
 
 def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
-                mesh=None, timings: Optional[Dict[str, float]] = None,
-                fusion_debug: Optional[Dict[str, dict]] = None) -> None:
+                mesh=None, fusion_debug: Optional[Dict[str, dict]] = None
+                ) -> None:
     """Stage 3 for a batch of objects; writes fused clouds into arts.
 
     With ``trust_aligned_completion`` the completions their backend
@@ -252,11 +255,12 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     grid, the reference's undo chain back into the input frame, the
     final refine, then dedup + concat per object, one FPS launch over the
     batch and the outlier masks (``fusion.fuse_clouds_batched``).
-    timings (optional) receives the walls of the registration steps
-    (reg_prep, reg_pose, reg_coarse, reg_fine, reg_refine, reg_fusion),
-    each ending in a device synchronisation.  fusion_debug (optional
-    dict) receives per registered flag the attribution of the
-    partial->fused UHD across the fusion's steps (``_fusion_report``).
+    Spans (``tracing``): reg_prep, reg_pose, reg_coarse, reg_fine,
+    reg_refine, reg_fusion, each waiting for the device at its end while
+    a recorder is on; the aligned completions' fusion gives reg_prep and
+    reg_fusion alone.  fusion_debug (optional dict) receives per
+    registered flag the attribution of the partial->fused UHD across the
+    fusion's steps (``_fusion_report``).
     With a mesh each step runs over the dp shards of the objects; the
     mesh is dropped when the registered objects do not split evenly
     (reference: batched_runner.py:362-364)."""
@@ -273,14 +277,6 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
         if not arts:
             return
     devs = shard_devices(len(arts))
-    t_last = [time.time()]
-
-    def mark(name):
-        if timings is not None:
-            _sync(device)
-            now = time.time()
-            timings[name] = now - t_last[0] + timings.get(name, 0.0)
-            t_last[0] = now
 
     def stack(arrays):
         return np.stack(arrays).astype(np.float32)
@@ -292,103 +288,106 @@ def batched_reg(cfg, arts: List[ObjectArtifacts], cd_inv_weight: float = 0.5,
     # host prep: voxel downsample + fixed resample per object
     pose_c, pose_cc, pose_p, pose_pc = [], [], [], []
     tgts, tgt_rgbs, srcs, src_rgbs = [], [], [], []
-    for art in arts:
-        src = np.asarray(art.color_xyz, np.float32)
-        src_rgb = (np.asarray(art.color_rgb, np.float32)
-                   if art.color_rgb is not None else np.full_like(src, 0.5))
-        if art.complete_xyz is None and art.complete_mesh is not None:
-            # a mesh-producing backend: sample the surface, as the
-            # per-object path does (reference: reg_xyz.py:125 glb2point)
-            art.complete_xyz, art.complete_rgb = sample_mesh_surface(
-                art.complete_mesh, glb_n)
-        tgt, tgt_rgb = resample_fixed(art.complete_xyz, glb_n,
-                                      art.complete_rgb)
-        tgt = tgt.astype(np.float32)
-        tgt_rgb = (np.asarray(tgt_rgb, np.float32) if tgt_rgb is not None
-                   else np.full_like(tgt, 0.5))
-        srcs.append(src)
-        src_rgbs.append(src_rgb)
-        tgts.append(tgt)
-        tgt_rgbs.append(tgt_rgb)
-        pv, pvc = voxel_down_sample(src, 0.02, src_rgb)
-        t120, t120c = resample_fixed(tgt, min(120000, len(tgt)), tgt_rgb)
-        cv, cvc = voxel_down_sample(t120, 0.02, t120c)
-        pv, pvc = resample_fixed(pv, pose_n, pvc)
-        cv, cvc = resample_fixed(cv, pose_n, cvc)
-        pose_p.append(pv), pose_pc.append(pvc)
-        pose_c.append(cv), pose_cc.append(cvc)
-    mark("reg_prep")
+    with span("reg_prep", sync=device):
+        for art in arts:
+            src = np.asarray(art.color_xyz, np.float32)
+            src_rgb = (np.asarray(art.color_rgb, np.float32)
+                       if art.color_rgb is not None
+                       else np.full_like(src, 0.5))
+            if art.complete_xyz is None and art.complete_mesh is not None:
+                # a mesh-producing backend: sample the surface, as the
+                # per-object path does (reference: reg_xyz.py:125
+                # glb2point)
+                art.complete_xyz, art.complete_rgb = sample_mesh_surface(
+                    art.complete_mesh, glb_n)
+            tgt, tgt_rgb = resample_fixed(art.complete_xyz, glb_n,
+                                          art.complete_rgb)
+            tgt = tgt.astype(np.float32)
+            tgt_rgb = (np.asarray(tgt_rgb, np.float32)
+                       if tgt_rgb is not None else np.full_like(tgt, 0.5))
+            srcs.append(src)
+            src_rgbs.append(src_rgb)
+            tgts.append(tgt)
+            tgt_rgbs.append(tgt_rgb)
+            pv, pvc = voxel_down_sample(src, 0.02, src_rgb)
+            t120, t120c = resample_fixed(tgt, min(120000, len(tgt)), tgt_rgb)
+            cv, cvc = voxel_down_sample(t120, 0.02, t120c)
+            pv, pvc = resample_fixed(pv, pose_n, pvc)
+            cv, cvc = resample_fixed(cv, pose_n, cvc)
+            pose_p.append(pv), pose_pc.append(pvc)
+            pose_c.append(cv), pose_cc.append(cvc)
 
-    T = run_sharded(lambda c, cc, p, pc: batched_pose_optim(
-        c, cc, p, pc, 0.02, float(cfg.get("pose_lr", 0.01)),
-        int(cfg.get("pose_iters", 200)),
-        int(cfg.get("pose_render_size", 224)),
-        coarse_frac=float(cfg.get("pose_coarse_frac", 0.7)),
-        prune_to=int(cfg.get("pose_prune_starts", 0))), devs,
-        stack(pose_c), stack(pose_cc), stack(pose_p), stack(pose_pc))
-    diff_T = np.linalg.inv(T).astype(np.float32)
-    mark("reg_pose")
+    with span("reg_pose", sync=device):
+        T = run_sharded(lambda c, cc, p, pc: batched_pose_optim(
+            c, cc, p, pc, 0.02, float(cfg.get("pose_lr", 0.01)),
+            int(cfg.get("pose_iters", 200)),
+            int(cfg.get("pose_render_size", 224)),
+            coarse_frac=float(cfg.get("pose_coarse_frac", 0.7)),
+            prune_to=int(cfg.get("pose_prune_starts", 0))), devs,
+            stack(pose_c), stack(pose_cc), stack(pose_p), stack(pose_pc))
+        diff_T = np.linalg.inv(T).astype(np.float32)
 
-    # normalise targets, transform sources into the pose frame (host)
-    src_w = [_apply(diff_T[i], srcs[i]) for i in range(B)]
-    tgt_n = [normalize_points(t, range=0.5)[0] for t in tgts]
+    with span("reg_coarse", sync=device):
+        # normalise targets, transform sources into the pose frame (host)
+        src_w = [_apply(diff_T[i], srcs[i]) for i in range(B)]
+        tgt_n = [normalize_points(t, range=0.5)[0] for t in tgts]
+        # coarse sweep on fixed-size voxel downsamples
+        scales = torch.as_tensor(np.linspace(1.5, 0.8, 11),
+                                 dtype=torch.float32)
+        coarse_T, _ = run_sharded(lambda s, t: batched_coarse_sweep(
+            s, t, scales.to(s.device), cd_inv_weight), devs,
+            stack([_downsample_fixed(s, icp_n) for s in src_w]),
+            stack([_downsample_fixed(t, icp_n) for t in tgt_n]))
 
-    # coarse sweep on fixed-size voxel downsamples
-    scales = torch.as_tensor(np.linspace(1.5, 0.8, 11), dtype=torch.float32)
-    coarse_T, _ = run_sharded(lambda s, t: batched_coarse_sweep(
-        s, t, scales.to(s.device), cd_inv_weight), devs,
-        stack([_downsample_fixed(s, icp_n) for s in src_w]),
-        stack([_downsample_fixed(t, icp_n) for t in tgt_n]))
-    mark("reg_coarse")
+    with span("reg_fine", sync=device):
+        # fine per-axis grid
+        src_w = [_apply(coarse_T[i], src_w[i]) for i in range(B)]
+        S, fine_T = run_sharded(lambda s, t: batched_fine_search(
+            s, t, cd_inv_weight=cd_inv_weight,
+            scale_steps=int(cfg.get("fine_scale_steps", 10))), devs,
+            stack([_downsample_fixed(s, icp_n) for s in src_w]),
+            stack([_downsample_fixed(t, icp_n) for t in tgt_n]))
 
-    # fine per-axis grid
-    src_w = [_apply(coarse_T[i], src_w[i]) for i in range(B)]
-    S, fine_T = run_sharded(lambda s, t: batched_fine_search(
-        s, t, cd_inv_weight=cd_inv_weight,
-        scale_steps=int(cfg.get("fine_scale_steps", 10))), devs,
-        stack([_downsample_fixed(s, icp_n) for s in src_w]),
-        stack([_downsample_fixed(t, icp_n) for t in tgt_n]))
-    mark("reg_fine")
+    with span("reg_refine", sync=device):
+        # undo chain (reference order) back into the input frame
+        final_s, final_t = [], []
+        with span("reg_undo"):
+            for i in range(B):
+                t = tgt_n[i]
+                t = _apply(np.linalg.inv(S[i]), t)
+                t = _apply(np.linalg.inv(fine_T[i]), t)
+                s = _apply(np.linalg.inv(coarse_T[i]), src_w[i])
+                t = _apply(np.linalg.inv(coarse_T[i]), t)
+                t = _apply(np.linalg.inv(diff_T[i]), t)
+                s = _apply(np.linalg.inv(diff_T[i]), s)
+                final_s.append(s)
+                final_t.append(t)
+        # final snap in the input frame (partial -> complete, the inverse
+        # applied to the complete)
+        if bool(cfg.get("final_icp_refine", True)):
+            Tr = run_sharded(lambda s, t: batched_similarity_refine(
+                s, t, mode=str(cfg.get("final_refine", "anisotropic"))),
+                devs,
+                stack([_downsample_fixed(s, icp_n) for s in final_s]),
+                stack([_downsample_fixed(t, icp_n) for t in final_t]))
+            for i in range(B):
+                final_t[i] = _apply(np.linalg.inv(Tr[i]), final_t[i])
 
-    # undo chain (reference order) back into the input frame
-    final_s, final_t = [], []
-    for i in range(B):
-        t = tgt_n[i]
-        t = _apply(np.linalg.inv(S[i]), t)
-        t = _apply(np.linalg.inv(fine_T[i]), t)
-        s = _apply(np.linalg.inv(coarse_T[i]), src_w[i])
-        t = _apply(np.linalg.inv(coarse_T[i]), t)
-        t = _apply(np.linalg.inv(diff_T[i]), t)
-        s = _apply(np.linalg.inv(diff_T[i]), s)
-        final_s.append(s)
-        final_t.append(t)
-
-    # final snap in the input frame (partial -> complete, the inverse
-    # applied to the complete)
-    if bool(cfg.get("final_icp_refine", True)):
-        Tr = run_sharded(lambda s, t: batched_similarity_refine(
-            s, t, mode=str(cfg.get("final_refine", "anisotropic"))), devs,
-            stack([_downsample_fixed(s, icp_n) for s in final_s]),
-            stack([_downsample_fixed(t, icp_n) for t in final_t]))
-        for i in range(B):
-            final_t[i] = _apply(np.linalg.inv(Tr[i]), final_t[i])
-    mark("reg_refine")
-
-    # dedup + concat + fps + denoise (one FPS launch over each shard)
-    prov = [] if fusion_debug is not None else None
-    fused = _fuse_sharded(
-        final_s, final_t, src_rgbs, tgt_rgbs, devs,
-        num_points=int(cfg.get("fused_points", 20000)),
-        denoise_neighbors=int(cfg.get("denoise_neighbors", 20)),
-        denoise_std_ratio=float(cfg.get("denoise_std", 2.5)),
-        provenance=prov)
-    for art, (pts, cols) in zip(arts, fused):
-        art.fused_xyz, art.fused_rgb = pts, cols
-    if fusion_debug is not None:
-        for i, art in enumerate(arts):
-            fusion_debug[art.flag] = _fusion_report(
-                art, final_s[i], final_t[i], prov[i], device)
-    mark("reg_fusion")
+    with span("reg_fusion", sync=device):
+        # dedup + concat + fps + denoise (one FPS launch over each shard)
+        prov = [] if fusion_debug is not None else None
+        fused = _fuse_sharded(
+            final_s, final_t, src_rgbs, tgt_rgbs, devs,
+            num_points=int(cfg.get("fused_points", 20000)),
+            denoise_neighbors=int(cfg.get("denoise_neighbors", 20)),
+            denoise_std_ratio=float(cfg.get("denoise_std", 2.5)),
+            provenance=prov)
+        for art, (pts, cols) in zip(arts, fused):
+            art.fused_xyz, art.fused_rgb = pts, cols
+        if fusion_debug is not None:
+            for i, art in enumerate(arts):
+                fusion_debug[art.flag] = _fusion_report(
+                    art, final_s[i], final_t[i], prov[i], device)
 
 
 def _fusion_report(art: ObjectArtifacts, s: np.ndarray, t: np.ndarray,
@@ -473,11 +472,6 @@ def _pad_rows(a: np.ndarray, k: int) -> np.ndarray:
     return np.concatenate([a] + [a[-1:]] * pad) if pad else a
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_batched(cfg, flags: List[str], data_dir: str,
                 gt_dir: Optional[str] = None, with_emd: bool = True,
                 batch: Optional[int] = None,
@@ -486,99 +480,108 @@ def run_batched(cfg, flags: List[str], data_dir: str,
                 ) -> Dict[str, Dict[str, float]]:
     """Full pipeline with batched stages + batched metrics, on cfg.device.
 
-    timings (optional dict) receives per-stage wall seconds
-    (load/stage1/generate/stage2/stage3/metric), each stage ending in a
-    device synchronisation, and the registration steps inside stage 3
-    (``batched_reg``'s reg_* keys).  dp (optional) injects a pre-built
-    DepthPrompting.  With cfg.mesh_shape every stage splits the objects
-    over dp (the module docstring)."""
+    The pass runs in six spans (``tracing``), each ending in a device
+    synchronisation whatever is on: load, stage1, generate, stage2,
+    stage3 (``batched_reg``'s reg_* spans inside), metric.  timings
+    (optional dict): the pass runs inside a recorder and the dict
+    receives ``Recorder.flat()``: each span's summed wall in seconds
+    under its bare name, and its counters as ``"<span>:<counter>"``
+    (``pose_coarse:steps``, ``stage3:syncs``; the table in ``tracing``'s
+    docstring).  dp (optional) injects a pre-built DepthPrompting.  With
+    cfg.mesh_shape every stage splits the objects over dp (the module
+    docstring)."""
+    if timings is None:
+        return _run_batched(cfg, flags, data_dir, gt_dir, with_emd, batch,
+                            dp)
+    with recording() as rec:
+        results = _run_batched(cfg, flags, data_dir, gt_dir, with_emd,
+                               batch, dp)
+    timings.update(rec.flat())
+    return results
+
+
+def _run_batched(cfg, flags, data_dir, gt_dir, with_emd, batch, dp):
     mesh = get_mesh(cfg)
     device = resolve_device(cfg.device, mesh)
-    t_last = [time.time()]
+    with span("load", sync=device, barrier=True):
+        gt_dir = gt_dir or os.path.join(data_dir, "GT")
+        dp = dp if dp is not None else DepthPrompting(cfg)
+        sa = ScaleAdapter(cfg)
+        n_in = int(cfg.get("input_points", 65536))
 
-    def mark(name):
-        _sync(device)
-        now = time.time()
-        if timings is not None:
-            timings[name] = now - t_last[0] + timings.get(name, 0.0)
-        t_last[0] = now
+        arts = []
+        for flag in flags:
+            xyz, rgb = load_xyz(os.path.join(data_dir, f"{flag}.ply"))
+            arts.append(input_artifacts(flag, xyz, rgb, n_in))
+        real_arts, arts = arts, _pad_to_dp(arts, mesh)
+    with span("stage1", sync=device, barrier=True):
+        batched_stage1(cfg, arts, dp.viewpoints, dp=dp, mesh=mesh)
+        # the inpainter is done once every depth is painted: free it
+        # before the generator loads (the reference keeps it resident)
+        _release_backend(dp, "inpainter")
+    with span("generate", sync=device, barrier=True):
+        _generate_images(cfg, dp, real_arts)
+        _release_backend(dp, "depth2image")
+    with span("stage2", sync=device, barrier=True):
+        sa.scale_adapter_batch(real_arts)
+        _release_backend(sa, "image23d")
+        _release_backend(sa, "rembg")
+        arts = _pad_to_dp(real_arts, mesh)
 
-    gt_dir = gt_dir or os.path.join(data_dir, "GT")
-    dp = dp if dp is not None else DepthPrompting(cfg)
-    sa = ScaleAdapter(cfg)
-    n_in = int(cfg.get("input_points", 65536))
+    with span("stage3", sync=device, barrier=True):
+        batch = batch or len(arts)
+        for i in range(0, len(arts), batch):
+            batched_reg(cfg, arts[i:i + batch], mesh=mesh)
+        arts = real_arts
 
-    arts = []
-    for flag in flags:
-        xyz, rgb = load_xyz(os.path.join(data_dir, f"{flag}.ply"))
-        arts.append(input_artifacts(flag, xyz, rgb, n_in))
-    real_arts, arts = arts, _pad_to_dp(arts, mesh)
-    mark("load")
-    batched_stage1(cfg, arts, dp.viewpoints, dp=dp, mesh=mesh)
-    # the inpainter is done once every depth is painted: free it before
-    # the generator loads (the reference keeps it resident)
-    _release_backend(dp, "inpainter")
-    mark("stage1")
-    _generate_images(cfg, dp, real_arts)
-    _release_backend(dp, "depth2image")
-    mark("generate")
-    sa.scale_adapter_batch(real_arts)
-    _release_backend(sa, "image23d")
-    _release_backend(sa, "rembg")
-    arts = _pad_to_dp(real_arts, mesh)
-    mark("stage2")
-
-    batch = batch or len(arts)
-    for i in range(0, len(arts), batch):
-        batched_reg(cfg, arts[i:i + batch], mesh=mesh, timings=timings)
-    arts = real_arts
-    mark("stage3")
-
-    # batched metric: FPS from the FULL clouds (reference: main.py:21-22),
-    # each cloud padded to the batch max by repeating its own points
-    # (ops/fps.pad_repeat: the selected sequence equals the full-cloud run).
-    results: Dict[str, Dict[str, float]] = {}
-    preds, gts, valid = [], [], []
-    for art in arts:
-        gt_path = os.path.join(gt_dir, f"{art.flag}.ply")
-        if not os.path.exists(gt_path):
-            continue
-        gt, _ = load_xyz(gt_path)
-        from genpc_tpu_torch.metrics.frame_fixes import apply_frame_fix
-        gt = apply_frame_fix(art.flag, gt)
-        preds.append(np.asarray(art.fused_xyz, np.float32))
-        gts.append(np.asarray(gt, np.float32))
-        valid.append(art.flag)
-    if preds:
-        devs = dp_devices(mesh, device)
-        # the batch padded to a dp multiple by repeating its last cloud
-        preds = _pad_rows(pad_repeat(preds), len(devs))
-        gts = _pad_rows(pad_repeat(gts), len(devs))
-        # GT clouds are immutable across passes over one eval set: keep
-        # the GT-side FPS selection (the metric stage's biggest compute)
-        # keyed by the GT directory, flag set, shape, sample count and
-        # the shards' devices (the mesh).
-        num_points = int(cfg.metric_points)
-        gt_key = (os.path.abspath(gt_dir), tuple(valid), gts.shape,
-                  num_points, tuple(str(d) for d in devs))
-        cached = _GT_DEVICE_CACHE.get("entry")
-        if cached is not None and cached[0] == gt_key:
-            gt_s = cached[1]
-        else:
-            gt_s = [batched_fps_gather(g, num_points)
-                    for g in split(gts, devs)]
-            _GT_DEVICE_CACHE["entry"] = (gt_key, gt_s)
-        outs = [batched_metric_sampled(
-            batched_fps_gather(p, num_points), g, emd_eps=float(cfg.emd_eps),
-            emd_iters=int(cfg.emd_iters), with_emd=with_emd)
-            for p, g in zip(split(preds, devs), gt_s)]
-        cd, emd = (np.concatenate([o[j].cpu().numpy() for o in outs])
-                   for j in (0, 1))
-        for i, flag in enumerate(valid):
-            results[flag] = {"cd": float(cd[i])}
-            if with_emd:
-                results[flag]["emd"] = float(emd[i])
-    mark("metric")
+    with span("metric", sync=device, barrier=True):
+        # batched metric: FPS from the FULL clouds (reference:
+        # main.py:21-22), each cloud padded to the batch max by repeating
+        # its own points (ops/fps.pad_repeat: the selected sequence equals
+        # the full-cloud run).
+        results: Dict[str, Dict[str, float]] = {}
+        preds, gts, valid = [], [], []
+        for art in arts:
+            gt_path = os.path.join(gt_dir, f"{art.flag}.ply")
+            if not os.path.exists(gt_path):
+                continue
+            gt, _ = load_xyz(gt_path)
+            from genpc_tpu_torch.metrics.frame_fixes import \
+                apply_frame_fix
+            gt = apply_frame_fix(art.flag, gt)
+            preds.append(np.asarray(art.fused_xyz, np.float32))
+            gts.append(np.asarray(gt, np.float32))
+            valid.append(art.flag)
+        if preds:
+            devs = dp_devices(mesh, device)
+            # the batch padded to a dp multiple by repeating its last cloud
+            preds = _pad_rows(pad_repeat(preds), len(devs))
+            gts = _pad_rows(pad_repeat(gts), len(devs))
+            # GT clouds are immutable across passes over one eval set:
+            # keep the GT-side FPS selection (the metric stage's biggest
+            # compute) keyed by the GT directory, flag set, shape, sample
+            # count and the shards' devices (the mesh).
+            num_points = int(cfg.metric_points)
+            gt_key = (os.path.abspath(gt_dir), tuple(valid), gts.shape,
+                      num_points, tuple(str(d) for d in devs))
+            cached = _GT_DEVICE_CACHE.get("entry")
+            if cached is not None and cached[0] == gt_key:
+                gt_s = cached[1]
+            else:
+                gt_s = [batched_fps_gather(g, num_points)
+                        for g in split(gts, devs)]
+                _GT_DEVICE_CACHE["entry"] = (gt_key, gt_s)
+            outs = [batched_metric_sampled(
+                batched_fps_gather(p, num_points), g,
+                emd_eps=float(cfg.emd_eps), emd_iters=int(cfg.emd_iters),
+                with_emd=with_emd)
+                for p, g in zip(split(preds, devs), gt_s)]
+            cd, emd = (np.concatenate([o[j].cpu().numpy() for o in outs])
+                       for j in (0, 1))
+            for i, flag in enumerate(valid):
+                results[flag] = {"cd": float(cd[i])}
+                if with_emd:
+                    results[flag]["emd"] = float(emd[i])
     return results
 
 

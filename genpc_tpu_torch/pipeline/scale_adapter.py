@@ -20,6 +20,7 @@ from genpc_tpu_torch.io.glb import Mesh
 from genpc_tpu_torch.models.backends import get_image23d, get_rembg
 from genpc_tpu_torch.models.synthetic import SyntheticImage23D
 from genpc_tpu_torch.pipeline.artifacts import ObjectArtifacts, Workspace
+from genpc_tpu_torch.tracing import span
 
 
 class ScaleAdapter:
@@ -75,32 +76,41 @@ class ScaleAdapter:
     def scale_adapter_batch(self, arts) -> None:
         """Stage 2 for a batch: per-object matting/colouring (host), then
         batched symmetry planning (synthetic), batched mesh generation
-        (``generate_meshes_batch``) or the per-object loop."""
-        for art in arts:
-            self.remove_bg(art)
-            self.color_point(art)
+        (``generate_meshes_batch``) or the per-object loop.  Spans
+        (``tracing``): ``stage2_matte``, ``stage2_plan`` (synthetic),
+        ``stage2_complete``."""
+        with span("stage2_matte"):
+            for art in arts:
+                self.remove_bg(art)
+                self.color_point(art)
         if isinstance(self.image23d, SyntheticImage23D):
-            plans = SyntheticImage23D.plan_symmetry_batched(
-                [a.color_xyz for a in arts], device=self.image23d.device)
-            for art, plan in zip(arts, plans):
-                art.complete_xyz, art.complete_rgb = \
-                    self.image23d.complete_with_plan(
-                        art.flag, art.color_xyz, art.color_rgb,
-                        art.viewpoint, plan)
-                art.complete_aligned = True
+            dev = self.image23d.device
+            with span("stage2_plan", sync=dev):
+                plans = SyntheticImage23D.plan_symmetry_batched(
+                    [a.color_xyz for a in arts], device=dev)
+            with span("stage2_complete", sync=dev):
+                for art, plan in zip(arts, plans):
+                    art.complete_xyz, art.complete_rgb = \
+                        self.image23d.complete_with_plan(
+                            art.flag, art.color_xyz, art.color_rgb,
+                            art.viewpoint, plan)
+                    art.complete_aligned = True
         elif hasattr(self.image23d, "generate_meshes_batch"):
             nb = int(self.cfg.get("image23d_batch", 0)) or len(arts)
             aligned = bool(getattr(self.image23d, "output_aligned", False))
-            for i in range(0, len(arts), nb):
-                chunk = arts[i:i + nb]
-                meshes = self.image23d.generate_meshes_batch(
-                    [a.flag for a in chunk], [a.image_nobg for a in chunk])
-                for art, m in zip(chunk, meshes):
-                    art.complete_mesh = m
-                    art.complete_aligned = aligned
+            with span("stage2_complete"):
+                for i in range(0, len(arts), nb):
+                    chunk = arts[i:i + nb]
+                    meshes = self.image23d.generate_meshes_batch(
+                        [a.flag for a in chunk],
+                        [a.image_nobg for a in chunk])
+                    for art, m in zip(chunk, meshes):
+                        art.complete_mesh = m
+                        art.complete_aligned = aligned
         else:
-            for art in arts:
-                self.img2shape(art)
+            with span("stage2_complete"):
+                for art in arts:
+                    self.img2shape(art)
         if self.cfg.save:
             for art in arts:
                 self.workspace.save_stage2(art)

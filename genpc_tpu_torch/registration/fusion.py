@@ -23,6 +23,7 @@ from genpc_tpu_torch.ops.chamfer import nearest_neighbor
 from genpc_tpu_torch.ops.fps import pad_repeat
 from genpc_tpu_torch.ops.fps_kernel import fps_batched
 from genpc_tpu_torch.ops.outliers import statistical_outlier_mask
+from genpc_tpu_torch.tracing import span
 
 Cloud = Tuple[np.ndarray, Optional[np.ndarray]]
 
@@ -66,35 +67,42 @@ def fuse_clouds_batched(sources: Sequence[np.ndarray],
     provenance (optional list) receives one dict per object: ``concat``
     (the deduplicated concatenation), ``sampled`` (after the FPS),
     ``from_partial`` (bool, which sampled points came from the source)
-    and ``mask`` (the outlier mask over ``sampled``)."""
+    and ``mask`` (the outlier mask over ``sampled``).  Spans
+    (``tracing``): ``fusion_dedup``, ``fusion_fps``, ``fusion_outliers``,
+    each ending in a copy to the host."""
     fused = []
-    for s, t, sc, tc in zip(sources, targets, source_colors, target_colors):
-        kept, kept_cols = remove_close_points(s, t, tc, distance_threshold,
-                                              device=device)
-        pts = np.concatenate([np.asarray(s), kept], axis=0)
-        cols = None
-        if sc is not None and kept_cols is not None:
-            cols = np.concatenate([np.asarray(sc), kept_cols], axis=0)
-        fused.append((pts, cols, np.arange(len(pts)) < len(s)))
+    with span("fusion_dedup"):
+        for s, t, sc, tc in zip(sources, targets, source_colors,
+                                target_colors):
+            kept, kept_cols = remove_close_points(s, t, tc,
+                                                  distance_threshold,
+                                                  device=device)
+            pts = np.concatenate([np.asarray(s), kept], axis=0)
+            cols = None
+            if sc is not None and kept_cols is not None:
+                cols = np.concatenate([np.asarray(sc), kept_cols], axis=0)
+            fused.append((pts, cols, np.arange(len(pts)) < len(s)))
     concat = [pts for pts, _, _ in fused]
     big = [i for i, f in enumerate(fused) if len(f[0]) > num_points]
-    if big:
-        idx = fps_batched(_t(pad_repeat([fused[i][0] for i in big]), device),
-                          num_points).cpu().numpy()
-        for i, row in zip(big, idx):
-            pts, cols, part = fused[i]
-            fused[i] = (pts[row], None if cols is None else cols[row],
-                        part[row])
+    with span("fusion_fps"):
+        if big:
+            idx = fps_batched(_t(pad_repeat([fused[i][0] for i in big]),
+                                 device), num_points).cpu().numpy()
+            for i, row in zip(big, idx):
+                pts, cols, part = fused[i]
+                fused[i] = (pts[row], None if cols is None else cols[row],
+                            part[row])
     out = []
-    for k, (pts, cols, part) in enumerate(fused):
-        mask = statistical_outlier_mask(_t(pts, device),
-                                        nb_neighbors=denoise_neighbors,
-                                        std_ratio=denoise_std_ratio)
-        mask = mask.cpu().numpy()
-        out.append((pts[mask], None if cols is None else cols[mask]))
-        if provenance is not None:
-            provenance.append({"concat": concat[k], "sampled": pts,
-                               "from_partial": part, "mask": mask})
+    with span("fusion_outliers"):
+        for k, (pts, cols, part) in enumerate(fused):
+            mask = statistical_outlier_mask(_t(pts, device),
+                                            nb_neighbors=denoise_neighbors,
+                                            std_ratio=denoise_std_ratio)
+            mask = mask.cpu().numpy()
+            out.append((pts[mask], None if cols is None else cols[mask]))
+            if provenance is not None:
+                provenance.append({"concat": concat[k], "sampled": pts,
+                                   "from_partial": part, "mask": mask})
     return out
 
 

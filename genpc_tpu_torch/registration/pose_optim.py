@@ -39,6 +39,7 @@ from genpc_tpu_torch.ops.chamfer import nn_one_sided
 from genpc_tpu_torch.ops.rowsum import mean_dims, std_dims, sum_dims
 from genpc_tpu_torch.render.point_renderer import (
     RenderCamera, clip, hard_mask, render_points, soft_mask)
+from genpc_tpu_torch.tracing import count, span
 
 #: per-pixel depth slots of the pose renderer (reference value): inputs
 #: are voxel-0.02 downsamples, whose centre-pixel occupancy at 224² stays
@@ -289,17 +290,22 @@ def optimize_all_starts(vert_pos, vert_col, partial_xyz, partial_col,
     full-resolution phase, whose best-loss tracking alone picks the pose.
     The coarse phase runs only when it has at least ``chunk`` steps.
     prune_to keeps the best prune_to coarse starts per object (0 or >= 4:
-    all starts)."""
+    all starts).  Spans (``tracing``): ``pose_coarse`` and ``pose_fine``
+    around the two phases' steps, each counting its steps as ``steps``
+    (the single phase is ``pose_fine``)."""
     from genpc_tpu_torch.ops.fps_kernel import fps_batched
     coarse_res = coarse_res or max(64, render_size // 2)
     n_coarse = int(iters * coarse_frac)
     if n_coarse < chunk:
         n_coarse = 0
+    dev = vert_pos.device
     if not n_coarse:
         carry = pose_carry_init(vert_pos, vert_col, partial_xyz, partial_col,
                                 radius, render_size)
-        return pose_carry_steps(carry, vert_pos, vert_col, partial_xyz,
-                                radius, lr, iters, render_size)
+        with span("pose_fine", sync=dev):
+            count("steps", iters)
+            return pose_carry_steps(carry, vert_pos, vert_col, partial_xyz,
+                                    radius, lr, iters, render_size)
     n_pts = vert_pos.shape[1]
     nc = min(n_pts, max(512, n_pts // 4))
 
@@ -312,7 +318,10 @@ def optimize_all_starts(vert_pos, vert_col, partial_xyz, partial_col,
     rad_c = float(np.float32(radius)
                   * np.sqrt(np.float32(n_pts) / np.float32(nc)))
     lo = pose_carry_init(cc, ccol, pc, pcol, rad_c, coarse_res)
-    lo = pose_carry_steps(lo, cc, ccol, pc, rad_c, lr, n_coarse, coarse_res)
+    with span("pose_coarse", sync=dev):
+        count("steps", n_coarse)
+        lo = pose_carry_steps(lo, cc, ccol, pc, rad_c, lr, n_coarse,
+                              coarse_res)
     carry = pose_carry_init(vert_pos, vert_col, partial_xyz, partial_col,
                             radius, render_size)
     if 0 < prune_to < N_STARTS:
@@ -321,8 +330,10 @@ def optimize_all_starts(vert_pos, vert_col, partial_xyz, partial_col,
         carry["params"] = lo["params"]
         carry["best_params"] = {k: v.clone() for k, v in lo["params"].items()}
         carry["opt"] = lo["opt"]
-    return pose_carry_steps(carry, vert_pos, vert_col, partial_xyz, radius,
-                            lr, iters - n_coarse, render_size)
+    with span("pose_fine", sync=dev):
+        count("steps", iters - n_coarse)
+        return pose_carry_steps(carry, vert_pos, vert_col, partial_xyz,
+                                radius, lr, iters - n_coarse, render_size)
 
 
 def object_pose_optimization(complete_xyz, complete_col, partial_xyz,

@@ -26,6 +26,7 @@ from genpc_tpu.models.rmbg import RMBGMatting as JRMBG
 from genpc_tpu_torch.models import birefnet as tb
 from genpc_tpu_torch.models import weights as tw
 from genpc_tpu_torch.models.rmbg import RMBGMatting
+from genpc_tpu_torch.tracing import recording
 
 K = jax.random.PRNGKey(0)
 #: two blocks a stage (the second shifted), 96² input: 24², 12², 6² and
@@ -237,8 +238,9 @@ def test_registry_builds_on_the_asked_device_and_releases():
         with pytest.raises(RuntimeError, match="cuda"):
             get_rembg("rmbg", tconfig.load_config(model_size="tiny"))
     img = np.random.default_rng(7).random((30, 50, 3)).astype(np.float32)
-    a = b(img)
-    b.release()
-    assert all(p.is_meta for p in b.net.parameters())
-    np.testing.assert_array_equal(b(img), a)
-    assert set(b.timer.as_dict()) == {"init", "matte", "release"}
+    with recording() as rec:
+        a = b(img)
+        b.release()
+        assert all(p.is_meta for p in b.net.parameters())
+        np.testing.assert_array_equal(b(img), a)
+    assert {s.name for s in rec.spans} == {"init", "matte", "release"}

@@ -25,6 +25,7 @@ from genpc_tpu_torch.io.synthetic_data import write_dataset
 from genpc_tpu_torch.models import weights as tw
 from genpc_tpu_torch.models.backends import get_depth2image
 from genpc_tpu_torch.models.dit_depth import DiTDepthEdit, FluxInpainter
+from genpc_tpu_torch.tracing import recording
 
 SIZE = 64
 #: max |port - reference| over the [0, 1] images: test_torch_generate's
@@ -265,17 +266,19 @@ def test_generate_release_and_generate_again():
     span, and the next generate materialises the same seeded weights."""
     b = DiTDepthEdit({"device": "cpu", "model_size": "tiny"}, seed=2)
     depth = np.random.default_rng(1).random((32, 32)).astype(np.float32)
-    a1 = b.generate(depth, "05117", size=SIZE)
-    a2 = b.generate(depth, "05117", size=SIZE)
-    assert a1.shape == (SIZE, SIZE, 3) and np.isfinite(a1).all()
-    assert 0.0 <= a1.min() and a1.max() <= 1.0 and not np.array_equal(a1, a2)
-    w = b.model.img_in.weight.clone()
-    v = b.vl.text.embed_tokens.weight.clone()
-    b.release()
-    assert all(p.is_meta for m in b.models().values()
-               for p in m.parameters())
-    b.generate(depth, "05117", size=SIZE)
-    assert torch.equal(b.model.img_in.weight, w)
-    assert torch.equal(b.vl.text.embed_tokens.weight, v)
-    assert set(b.timer.as_dict()) == {"vl_init", "encode", "dit_init",
-                                      "denoise", "decode", "release"}
+    with recording() as rec:
+        a1 = b.generate(depth, "05117", size=SIZE)
+        a2 = b.generate(depth, "05117", size=SIZE)
+        assert a1.shape == (SIZE, SIZE, 3) and np.isfinite(a1).all()
+        assert 0.0 <= a1.min() and a1.max() <= 1.0
+        assert not np.array_equal(a1, a2)
+        w = b.model.img_in.weight.clone()
+        v = b.vl.text.embed_tokens.weight.clone()
+        b.release()
+        assert all(p.is_meta for m in b.models().values()
+                   for p in m.parameters())
+        b.generate(depth, "05117", size=SIZE)
+        assert torch.equal(b.model.img_in.weight, w)
+        assert torch.equal(b.vl.text.embed_tokens.weight, v)
+    assert {s.name for s in rec.spans} == {"vl_init", "encode", "dit_init",
+                                           "denoise", "decode", "release"}

@@ -11,6 +11,7 @@ import torch
 import torch_flux_ref as fr
 
 from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
+from genpc_tpu_torch.tracing import recording
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,21 +38,22 @@ def test_release_frees_t5_and_clip_l():
                       "quant_bits": 4, "tower_quant_bits": 4},
                      variant="flux", seed=2)
     depth = np.random.default_rng(1).random((32, 32)).astype(np.float32)
-    a1 = b.generate(depth, "05117", size=fr.SIZE, num_inference_steps=3)
-    assert a1.shape == (fr.SIZE, fr.SIZE, 3) and np.isfinite(a1).all()
-    w = b.t5.model.encoder.block[0].layer[0].SelfAttention.q.weight.clone()
-    assert w.dtype == torch.int8
-    b.release()
-    for kind in ("dit", "vae", "t5", "clip_l"):
-        mod = b.models()[kind]
-        assert all(x.is_meta for x in list(mod.parameters())
-                   + list(mod.buffers())), kind
-    assert not b.t5.ready
-    b.generate(depth, "05117", size=fr.SIZE, num_inference_steps=3)
-    assert torch.equal(
-        b.t5.model.encoder.block[0].layer[0].SelfAttention.q.weight, w)
-    assert set(b.timer.as_dict()) == {"t5_init", "encode", "dit_init",
-                                      "denoise", "decode", "release"}
+    with recording() as rec:
+        a1 = b.generate(depth, "05117", size=fr.SIZE, num_inference_steps=3)
+        assert a1.shape == (fr.SIZE, fr.SIZE, 3) and np.isfinite(a1).all()
+        w = b.t5.model.encoder.block[0].layer[0].SelfAttention.q.weight.clone()
+        assert w.dtype == torch.int8
+        b.release()
+        for kind in ("dit", "vae", "t5", "clip_l"):
+            mod = b.models()[kind]
+            assert all(x.is_meta for x in list(mod.parameters())
+                       + list(mod.buffers())), kind
+        assert not b.t5.ready
+        b.generate(depth, "05117", size=fr.SIZE, num_inference_steps=3)
+        assert torch.equal(
+            b.t5.model.encoder.block[0].layer[0].SelfAttention.q.weight, w)
+    assert {s.name for s in rec.spans} == {"t5_init", "encode", "dit_init",
+                                           "denoise", "decode", "release"}
 
 
 def test_full_flux_parameter_count_matches_the_reference():

@@ -20,6 +20,7 @@ from genpc_tpu.models.dit_depth import DiTDepthEdit as JDiT
 from genpc_tpu.models.dit_depth import FluxInpainter as JInp
 from genpc_tpu_torch.io.synthetic_data import write_dataset
 from genpc_tpu_torch.models.dit_depth import DiTDepthEdit, FluxInpainter
+from genpc_tpu_torch.tracing import recording
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,14 +59,15 @@ def test_inpainter_matches_the_reference(mode):
             pytest.MonkeyPatch.context() as mp:
         mp.setattr(ti, "paint_draws", lambda hw: noise)
         ref = ji.paint(img, mask)
-        got = ti.paint(img, mask)
+        with recording() as rec:
+            got = ti.paint(img, mask)
     jax.clear_caches()
     assert got.shape == ref.shape == (3, fr.SIZE, fr.SIZE)
     known = mask.max(axis=0) < 0.5
     np.testing.assert_array_equal(got[:, known], ref[:, known])
     assert float(ref[:, ~known].std()) > 0.01
     assert np.abs(got - ref).max() <= fr.IMAGE_TOL[mode]
-    assert set(ti.timer.as_dict()) == {"encode", "inpaint"}
+    assert {s.name for s in rec.spans} == {"encode", "inpaint"}
 
 
 def test_depth_prompting_paints_with_flux_per_object():

@@ -24,6 +24,7 @@ from genpc_tpu_torch.io.synthetic_data import write_dataset
 from genpc_tpu_torch.models import weights as tw
 from genpc_tpu_torch.models.backends import get_depth2image
 from genpc_tpu_torch.models.controlnet_depth import ControlNetDepth
+from genpc_tpu_torch.tracing import recording
 
 SIZE, STEPS = 64, 2
 #: max |port - reference| over the [0, 1] images, by precision mode
@@ -129,17 +130,20 @@ def test_generate_release_and_generate_again():
     b = ControlNetDepth(tconfig.load_config(device="cpu", model_size="tiny"),
                         adapter=False, seed=3)
     depth = np.random.default_rng(1).random((32, 32)).astype(np.float32)
-    a1 = b.generate(depth, "05117", size=SIZE, num_inference_steps=STEPS)
-    a2 = b.generate(depth, "05117", size=SIZE, num_inference_steps=STEPS)
-    assert a1.shape == (SIZE, SIZE, 3) and np.isfinite(a1).all()
-    assert 0.0 <= a1.min() and a1.max() <= 1.0 and not np.array_equal(a1, a2)
-    w = b.unet.conv_in.weight.clone()
-    b.release()
-    assert all(p.is_meta for m in b.models().values()
-               for p in m.parameters())
-    b.generate(depth, "05117", size=SIZE, num_inference_steps=STEPS)
-    assert torch.equal(b.unet.conv_in.weight, w)
-    assert set(b.timer.as_dict()) == {"init", "prompt", "denoise", "decode"}
+    with recording() as rec:
+        a1 = b.generate(depth, "05117", size=SIZE, num_inference_steps=STEPS)
+        a2 = b.generate(depth, "05117", size=SIZE, num_inference_steps=STEPS)
+        assert a1.shape == (SIZE, SIZE, 3) and np.isfinite(a1).all()
+        assert 0.0 <= a1.min() and a1.max() <= 1.0
+        assert not np.array_equal(a1, a2)
+        w = b.unet.conv_in.weight.clone()
+        b.release()
+        assert all(p.is_meta for m in b.models().values()
+                   for p in m.parameters())
+        b.generate(depth, "05117", size=SIZE, num_inference_steps=STEPS)
+        assert torch.equal(b.unet.conv_in.weight, w)
+    assert {s.name for s in rec.spans} == {"init", "prompt", "denoise",
+                                           "decode"}
 
 
 #: test_torch_pipeline.py's tiny run_batched config, with the ControlNet

@@ -28,6 +28,7 @@ from genpc_tpu_torch.models import schedulers as ts
 from genpc_tpu_torch.models import weights as tw
 from genpc_tpu_torch.models.ddnm import DDNMInpainter
 from genpc_tpu_torch.render.inpaint import inpaint_image
+from genpc_tpu_torch.tracing import recording
 
 K = jax.random.PRNGKey(0)
 SIZE = 32
@@ -278,7 +279,8 @@ def test_ddnm_sampler_matches_on_reference_draws(ddnm_tree, mode):
     with precision(mode, t.unet), pytest.MonkeyPatch.context() as mp:
         mp.setattr(t, "paint_draws", lambda shape: noise)
         ref = j.inpaint(img, mask)
-        got = t.inpaint(img, mask)
+        with recording() as rec:
+            got = t.inpaint(img, mask)
     jax.clear_caches()
     assert got.shape == ref.shape == (3, SIZE, SIZE)
     known = mask < 0.5
@@ -288,7 +290,7 @@ def test_ddnm_sampler_matches_on_reference_draws(ddnm_tree, mode):
     gap = float(np.abs(got - ref).max())
     print(f"ddnm sampler, {mode}: max |port - reference| {gap:.3e}")
     assert gap <= PAINT_TOL[mode]
-    assert set(t.timer.as_dict()) == {"inpaint"}
+    assert {s.name for s in rec.spans} == {"inpaint"}
 
 
 def test_ddnm_draws_release_and_paint_again():
@@ -308,15 +310,16 @@ def test_ddnm_draws_release_and_paint_again():
                                                inpainter="DDNM"))
     inp.steps = 3
     img, mask = _hole_case(seed=9)
-    a1 = inp.inpaint(img, mask)
-    a2 = inp.inpaint(img, mask)
-    assert not np.array_equal(a1, a2)
-    inp.release()
-    assert all(p.is_meta for p in inp.unet.parameters())
-    fresh = make_inpainter(cfg)
-    fresh.steps = 3
-    np.testing.assert_array_equal(fresh.inpaint(img, mask), a1)
-    assert set(inp.timer.as_dict()) == {"init", "inpaint", "release"}
+    with recording() as rec:
+        a1 = inp.inpaint(img, mask)
+        a2 = inp.inpaint(img, mask)
+        assert not np.array_equal(a1, a2)
+        inp.release()
+        assert all(p.is_meta for p in inp.unet.parameters())
+        fresh = make_inpainter(cfg)
+        fresh.steps = 3
+        np.testing.assert_array_equal(fresh.inpaint(img, mask), a1)
+    assert {s.name for s in rec.spans} == {"init", "inpaint", "release"}
 
 
 def test_ddim_steps_by_tensor_index_match_int_index():

@@ -33,6 +33,7 @@ from genpc_tpu_torch.models import lrm as tlrm
 from genpc_tpu_torch.models import text_encoder as tte
 from genpc_tpu_torch.models import weights as tw
 from genpc_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+from genpc_tpu_torch.tracing import recording
 from torch_replay import native_off
 
 K = jax.random.PRNGKey(0)
@@ -585,22 +586,23 @@ def test_backend_registry_release_and_generate_again():
             get_image23d("instantmesh",
                          tconfig.load_config(model_size="tiny"))
     img = _images(1)[0]
-    m1 = b("01184", img)
-    m2 = b("01184", img)
-    assert m1.vertices.shape[1] == 3 and m1.faces.shape[1] == 3
-    assert m1.vertex_colors.shape == m1.vertices.shape
-    assert np.isfinite(m1.vertices).all() and len(m1.faces) > 1
-    assert not np.array_equal(m1.vertices, m2.vertices) or \
-        len(m1.faces) != len(m2.faces)
-    w = b.lrm.transformer.pos_embed.clone()
-    b.release()
-    assert all(p.is_meta for m in b.models().values()
-               for p in m.parameters())
-    b("01184", img)
-    assert torch.equal(b.lrm.transformer.pos_embed, w)
-    assert set(b.timer.as_dict()) == {"init", "context", "denoise", "decode",
-                                      "grid", "marching", "colors",
-                                      "release"}
+    with recording() as rec:
+        m1 = b("01184", img)
+        m2 = b("01184", img)
+        assert m1.vertices.shape[1] == 3 and m1.faces.shape[1] == 3
+        assert m1.vertex_colors.shape == m1.vertices.shape
+        assert np.isfinite(m1.vertices).all() and len(m1.faces) > 1
+        assert not np.array_equal(m1.vertices, m2.vertices) or \
+            len(m1.faces) != len(m2.faces)
+        w = b.lrm.transformer.pos_embed.clone()
+        b.release()
+        assert all(p.is_meta for m in b.models().values()
+                   for p in m.parameters())
+        b("01184", img)
+        assert torch.equal(b.lrm.transformer.pos_embed, w)
+    assert {s.name for s in rec.spans} == {
+        "init", "context", "denoise", "decode", "grid", "marching",
+        "colors", "release"}
 
 
 # ------------------------------------------------------------ pipeline

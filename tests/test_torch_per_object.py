@@ -380,17 +380,22 @@ def test_load_xyz_down_sample_matches(tmp_path):
 
 
 def test_stage_timer_and_trace(tmp_path):
-    # nested spans as in the reference; trace() writes a Chrome trace
+    # nested spans as in the reference, on the recorder; trace() writes a
+    # Chrome trace that holds each span as a range
+    import json
     import time
-    from genpc_tpu_torch.tracing import StageTimer, annotate, trace
-    timer = StageTimer("cpu")
-    with trace(str(tmp_path / "prof")):
-        with timer.span("a"):
-            with timer.span("b"), annotate("b"):
+    from genpc_tpu_torch.tracing import recording, span, trace
+    with trace(str(tmp_path / "prof")), recording() as rec:
+        with span("a"):
+            with span("b"):
                 time.sleep(0.01)
                 torch.ones(8).sum()
-    d = timer.as_dict()
-    assert "a" in d and "a/b" in d
-    assert d["a"][0] >= d["a/b"][0] >= 0.01
-    assert d["a"][1] == 1
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    d = {s.path: s for s in rec.spans}
+    assert set(d) == {"a", "a/b"} and d["a/b"].parent == "a"
+    assert d["a"].seconds >= d["a/b"].seconds >= 0.01
+    assert rec.flat()["a"] == d["a"].seconds
+    path = tmp_path / "prof" / "trace.json"
+    assert os.path.getsize(path) > 0
+    names = {e.get("name") for e in json.loads(path.read_text())[
+        "traceEvents"]}
+    assert {"a", "b"} <= names

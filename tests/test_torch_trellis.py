@@ -27,6 +27,7 @@ from genpc_tpu.models import weights as jw
 from genpc_tpu_torch.models import sf3d as tsf
 from genpc_tpu_torch.models import trellis as ttr
 from genpc_tpu_torch.models import weights as tw
+from genpc_tpu_torch.tracing import recording
 from torch_trellis_ref import ref_trellis_draws, trellis_backends, \
     trellis_inits
 
@@ -295,19 +296,20 @@ def test_registry_builds_on_the_asked_device_and_releases(name):
         with pytest.raises(RuntimeError, match="cuda"):
             get_image23d(name, tconfig.load_config(model_size="tiny"))
     img = _images(1, seed=9, size=64)[0]
-    m1 = b("01184", img)
-    w = next(iter(b.net.state_dict().values())).clone()
-    b.release()
-    assert all(p.is_meta for p in b.net.parameters())
-    m2 = b("01184", img)
-    assert torch.equal(next(iter(b.net.state_dict().values())), w)
-    for m in (m1, m2):
-        assert m.vertices.shape[1] == 3 and m.faces.shape[1] == 3
-        assert m.vertex_colors.shape == m.vertices.shape
-        assert np.all(np.abs(m.vertices) <= 1.0 + 1e-5)
-    if name == "sf3d":
-        np.testing.assert_array_equal(m1.vertices, m2.vertices)
-    assert "release" in b.timer.as_dict()
+    with recording() as rec:
+        m1 = b("01184", img)
+        w = next(iter(b.net.state_dict().values())).clone()
+        b.release()
+        assert all(p.is_meta for p in b.net.parameters())
+        m2 = b("01184", img)
+        assert torch.equal(next(iter(b.net.state_dict().values())), w)
+        for m in (m1, m2):
+            assert m.vertices.shape[1] == 3 and m.faces.shape[1] == 3
+            assert m.vertex_colors.shape == m.vertices.shape
+            assert np.all(np.abs(m.vertices) <= 1.0 + 1e-5)
+        if name == "sf3d":
+            np.testing.assert_array_equal(m1.vertices, m2.vertices)
+    assert "release" in {s.name for s in rec.spans}
 
 
 def test_full_parameter_counts_match_the_reference():
