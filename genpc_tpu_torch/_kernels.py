@@ -168,18 +168,84 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: no kernel for device {dev}")
 
 
+class Elapsed:
+    """The device time of one launch of a graph replay, read as an event
+    pair's is: ``elapsed_time(end)`` gives it in milliseconds whatever
+    ``end`` is (a trace entry holds None there)."""
+
+    __slots__ = ("ms",)
+
+    def __init__(self, ms: float):
+        self.ms = ms
+
+    def elapsed_time(self, _end=None) -> float:
+        return self.ms
+
+
+class Captured:
+    """The launches of the traced wrappers that one stream capture
+    records: ``with Captured() as launches:`` around the capture and
+    nothing else (every traced launch inside is taken as captured), then
+    ``launches.replayed()`` after each replay of its graph, which counts
+    each launch into its wrapper's ``launches`` and, where the wrapper's
+    ``trace`` is a list, appends (shape, ``Elapsed``, None) with the
+    launch's device time in that replay.  The time is read from the
+    external events the capture recorded around the launch (event-record
+    nodes of the graph, re-recorded by every replay), so it waits for the
+    replay to end, and only while a trace list is on."""
+
+    def __init__(self):
+        #: (wrapper, shape, start, end); the events None when untraced
+        self.launches: list = []
+
+    def __enter__(self) -> "Captured":
+        global _capture
+        _capture = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _capture
+        _capture = None
+
+    def replayed(self) -> None:
+        for fn, shape, start, end in self.launches:
+            fn.launches += 1
+            if start is not None and fn.trace is not None:
+                end.synchronize()
+                fn.trace.append((shape, Elapsed(start.elapsed_time(end)),
+                                 None))
+
+
+#: the capture under way (``Captured``), which takes the launches it
+#: records; process-wide, as a stream capture is, since the backward's
+#: launches come from the autograd engine's own thread
+_capture: Captured | None = None
+
+
 @contextlib.contextmanager
 def traced(fn, shape: tuple):
-    """Around one user-level launch of the wrapper ``fn``: when
-    ``fn.trace`` is a list, append (shape, start, end) with CUDA events
-    recorded on the current stream before and after (the launch-shape
-    histogram of chip_smoke.py); otherwise do nothing."""
-    if fn.trace is None:
-        yield
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    """Around one user-level launch of the wrapper ``fn``: counts it in
+    ``fn.launches`` and, when ``fn.trace`` is a list, appends (shape,
+    start, end) with CUDA events recorded on the current stream before
+    and after (the launch-shape histogram of chip_smoke.py, the
+    benchmark's rooflines).  A launch that a ``Captured`` capture records
+    is counted and traced by ``Captured.replayed`` instead, at each
+    replay."""
+    capture = _capture
+    timed = fn.trace is not None
+    if timed:
+        start = torch.cuda.Event(enable_timing=True,
+                                 external=capture is not None)
+        end = torch.cuda.Event(enable_timing=True,
+                               external=capture is not None)
+        start.record()
     yield
-    end.record()
-    fn.trace.append((shape, start, end))
+    if timed:
+        end.record()
+    if capture is not None:
+        capture.launches.append((fn, shape) + ((start, end) if timed
+                                               else (None, None)))
+        return
+    fn.launches += 1
+    if timed:
+        fn.trace.append((shape, start, end))

@@ -162,7 +162,6 @@ def _launch(x: torch.Tensor, y: torch.Tensor, y_index: Optional[torch.Tensor],
             _kernels.ptr(ipart), b, n, m, plan["rows"], plan["threads"],
             plan["splits"], plan["chunk"], _kernels.stream(x))
     _kernels.check(rc, "genpc_nn")
-    _nn.launches += 1
     return dist, idx
 
 

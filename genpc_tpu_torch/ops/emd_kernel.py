@@ -177,7 +177,6 @@ def _launch(x1: torch.Tensor, x2: torch.Tensor, price: torch.Tensor,
             better.data_ptr(), b, n, m, plan["rows"], plan["group"],
             plan["threads"], _kernels.stream(x1))
     _kernels.check(rc, "genpc_emd_bid")
-    bid.launches += 1
     return out_bid, best, better
 
 

@@ -121,7 +121,6 @@ def _launch(pts: torch.Tensor, k: int, start: int,
             start, plan["cluster"], plan["slice"], plan["ppt"],
             _kernels.stream(pts))
     _kernels.check(rc, "genpc_fps")
-    fps_batched.launches += 1
     return out
 
 

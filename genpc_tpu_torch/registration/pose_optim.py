@@ -33,6 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from genpc_tpu_torch import _kernels
 from genpc_tpu_torch.geometry.transforms import (
     build_transform, rot6d_from_axis_angle, rotation_6d_to_matrix)
 from genpc_tpu_torch.ops.chamfer import nn_one_sided
@@ -54,6 +55,9 @@ KEYS = ("rot6d", "trans", "log_scale")
 #: trans, scale)
 LR_FACTOR = {"rot6d": None, "trans": 0.2, "log_scale": 0.1}
 B1, B2, EPS = 0.9, 0.999, 1e-8
+#: eager steps a phase runs on the card before it captures its step: the
+#: capture then finds the allocator and the autograd engine warm
+WARMUP_STEPS = 1
 
 
 def _normalize_images(ref_img, result_img):
@@ -204,10 +208,8 @@ def _adam(params, grads, opt, lr: float, factors=LR_FACTOR):
     learning rate is lr times its entry of ``factors`` (None: 1)."""
     count = opt["count"] + 1
     c = count.to(torch.float32)[..., None]
-    bc1 = 1 - torch.pow(torch.tensor(B1, dtype=torch.float32,
-                                     device=c.device), c)
-    bc2 = 1 - torch.pow(torch.tensor(B2, dtype=torch.float32,
-                                     device=c.device), c)
+    bc1 = 1 - torch.pow(c.new_full((), B1), c)
+    bc2 = 1 - torch.pow(c.new_full((), B2), c)
     new_p, mu, nu = {}, {}, {}
     for k in KEYS:
         g = grads[k]
@@ -218,31 +220,104 @@ def _adam(params, grads, opt, lr: float, factors=LR_FACTOR):
     return new_p, {"mu": mu, "nu": nu, "count": count}
 
 
-def pose_carry_steps(carry: Dict, vert_pos, vert_col, partial_xyz, radius,
-                     lr: float, steps: int, render_size: int) -> Dict:
-    """Advance every start of every object by ``steps`` Adam iterations.
-    Before each update the best-loss parameters are kept (strict
-    ``loss < best``, diff_obj_pose.py:547-567)."""
+def pose_step(carry: Dict, vert_pos, vert_col, partial_xyz, radius,
+              lr: float, render_size: int):
+    """The Adam step of every start of every object as a function of the
+    state, the carry's {params, opt, best, best_params}: ``step(state)``
+    returns the next state in new tensors.  Before the update the
+    best-loss parameters are kept (strict ``loss < best``,
+    diff_obj_pose.py:547-567).  The step copies nothing from the host and
+    reads nothing back, so a CUDA graph can capture it."""
     camera = RenderCamera.default(render_size)
     center = mean_dims(vert_pos, (1,))
-    params, opt = carry["params"], carry["opt"]
-    best, best_params = carry["best"], carry["best_params"]
-    for _ in range(steps):
+    ref_img, ref_mask = carry["ref_img"], carry["ref_mask"]
+
+    def step(state: Dict) -> Dict:
+        params, best = state["params"], state["best"]
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         loss = pose_loss(p, vert_pos, vert_col, center, partial_xyz,
-                         carry["ref_img"], carry["ref_mask"], camera, radius)
+                         ref_img, ref_mask, camera, radius)
         grads = dict(zip(KEYS, torch.autograd.grad(
             loss.sum(), [p[k] for k in KEYS])))
         with torch.no_grad():
             loss = loss.detach()
             better = loss < best
             best_params = {k: torch.where(better[..., None], params[k],
-                                          best_params[k]) for k in KEYS}
-            best = torch.minimum(best, loss)
-            params, opt = _adam(params, grads, opt, lr)
-    return {"params": params, "opt": opt, "best": best,
-            "best_params": best_params, "ref_img": carry["ref_img"],
-            "ref_mask": carry["ref_mask"]}
+                                          state["best_params"][k])
+                           for k in KEYS}
+            new_params, opt = _adam(params, grads, state["opt"], lr)
+        return {"params": new_params, "opt": opt,
+                "best": torch.minimum(best, loss),
+                "best_params": best_params}
+
+    return step
+
+
+def _tree(fn, *trees):
+    """``fn`` over the tensors of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _graphed_steps(step, state: Dict, steps: int) -> Dict:
+    """``steps`` steps of ``step`` on the card, each reading the state from
+    static buffers and copying its result into them: the first
+    WARMUP_STEPS eagerly, then one capture of the step on a side stream,
+    replayed for each remaining step.  The graph runs the eager step's
+    kernels on the same buffers, so it gives the same bits.  The graph and
+    its memory pool live for this call only.  The warm-up runs on the
+    calling stream, so the blocks it leaves cached serve the next call; a
+    new side stream each call would cache a set of its own each time."""
+    dev = state["best"].device
+    cur = torch.cuda.current_stream(dev)
+    static = _tree(torch.clone, state)
+    for _ in range(WARMUP_STEPS):
+        _tree(torch.Tensor.copy_, static, step(static))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.device(dev):
+        pool = torch.cuda.MemPool()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side), _kernels.Captured() as launches:
+            graph.capture_begin(pool=pool.id)
+            try:
+                _tree(torch.Tensor.copy_, static, step(static))
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        for _ in range(steps - WARMUP_STEPS):
+            graph.replay()
+            launches.replayed()
+    finally:
+        # the graph goes before its pool, whose end returns the pool's
+        # memory to the device
+        graph.reset()
+        del pool
+    return static
+
+
+def pose_carry_steps(carry: Dict, vert_pos, vert_col, partial_xyz, radius,
+                     lr: float, steps: int, render_size: int) -> Dict:
+    """Advance every start of every object by ``steps`` Adam iterations
+    (``pose_step``).  On a CUDA device, where it has more than
+    WARMUP_STEPS steps, the steps after the first WARMUP_STEPS replay one
+    CUDA graph of the step (``_graphed_steps``); elsewhere they run
+    eagerly.  Counters (``tracing``): ``graph_steps``, the replayed steps,
+    and ``captures``, the graphs captured (both 0 off the card)."""
+    step = pose_step(carry, vert_pos, vert_col, partial_xyz, radius, lr,
+                     render_size)
+    state = {k: carry[k] for k in ("params", "opt", "best", "best_params")}
+    graphed = vert_pos.device.type == "cuda" and steps > WARMUP_STEPS
+    count("captures", int(graphed))
+    count("graph_steps", steps - WARMUP_STEPS if graphed else 0)
+    if graphed:
+        state = _graphed_steps(step, state, steps)
+    else:
+        for _ in range(steps):
+            state = step(state)
+    return dict(state, ref_img=carry["ref_img"], ref_mask=carry["ref_mask"])
 
 
 def prune_starts(lo: Dict, carry: Dict, keep: int) -> Dict:
@@ -292,7 +367,8 @@ def optimize_all_starts(vert_pos, vert_col, partial_xyz, partial_col,
     prune_to keeps the best prune_to coarse starts per object (0 or >= 4:
     all starts).  Spans (``tracing``): ``pose_coarse`` and ``pose_fine``
     around the two phases' steps, each counting its steps as ``steps``
-    (the single phase is ``pose_fine``)."""
+    and, from ``pose_carry_steps``, ``graph_steps`` and ``captures`` (the
+    single phase is ``pose_fine``)."""
     from genpc_tpu_torch.ops.fps_kernel import fps_batched
     coarse_res = coarse_res or max(64, render_size // 2)
     n_coarse = int(iters * coarse_frac)

@@ -28,7 +28,6 @@ Renders are batched: points [R,N,3] (or [N,3]) -> images [R,res,res,3].
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -61,23 +60,23 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     maximum then a minimum, whose gradient splits 50/50 where x equals a
     bound (torch.clamp passes it whole).  Pose-loss values sit exactly on
     a bound often enough (a saturated sigmoid under the BCE clip) for the
-    difference to show."""
-    t = functools.partial(torch.tensor, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, t(lo)), t(hi))
+    difference to show.  The bounds are filled on x's device, with no
+    host-to-device copy."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def _project_attrs(points: torch.Tensor, radius, camera: RenderCamera,
                    footprint: int):
     """Continuous pixel centres and splat parameters of points [...,N,3]:
-    (px, py, dn, sigma2, in_front), each [...,N]."""
+    (px, py, dn, sigma2, in_front), each [...,N].  Its constants are
+    filled on the points' device: it copies nothing from the host."""
     res = camera.res
     pts = points.to(torch.float32)
-    rad = torch.as_tensor(radius, dtype=torch.float32, device=pts.device)
-    eye_z = torch.tensor(camera.eye[2], dtype=torch.float32,
-                         device=pts.device)
-    depth = torch.maximum(eye_z - pts[..., 2],
-                          torch.tensor(camera.znear, dtype=torch.float32,
-                                       device=pts.device))
+    rad = radius.to(device=pts.device, dtype=torch.float32) \
+        if torch.is_tensor(radius) else pts.new_full((), float(radius))
+    depth = torch.maximum(pts.new_full((), camera.eye[2]) - pts[..., 2],
+                          pts.new_full((), camera.znear))
     half = res / 2.0
     px = (pts[..., 0] * camera.focal / depth) * half + half - 0.5
     py = (-pts[..., 1] * camera.focal / depth) * half + half - 0.5
@@ -271,8 +270,7 @@ def _render_scatter(points: torch.Tensor, cols: torch.Tensor, radius,
         wacc = torch.zeros(size, dtype=torch.float32,
                            device=dev).index_add(0, flat, w)
     # background: a fixed unit weight at dn=0 (point_renderer.py:408)
-    bg_w = torch.exp(torch.tensor(-1.0, dtype=torch.float32,
-                                  device=dev) / gamma) + 1e-8
+    bg_w = torch.exp(points.new_full((), -1.0) / gamma) + 1e-8
     acc = acc.reshape(r, npix + 1, 3)[:, :npix]
     wacc = wacc.reshape(r, npix + 1)[:, :npix]
     return (acc / (wacc + bg_w)[..., None]).reshape(r, res, res, 3)
@@ -306,8 +304,7 @@ def render_points(points: torch.Tensor, colors: torch.Tensor, radius,
                                                   footprint)
     acc, wacc = _SlotsRender.apply(px, py, dn, sigma2, cols, in_front, res,
                                    footprint, slots, float(gamma))
-    bg_w = torch.exp(torch.tensor(-1.0, dtype=torch.float32,
-                                  device=pts.device) / gamma) + 1e-8
+    bg_w = torch.exp(pts.new_full((), -1.0) / gamma) + 1e-8
     img = (acc / (wacc + bg_w)[:, None]).permute(0, 2, 3, 1)
     return img[0] if single else img
 

@@ -84,7 +84,7 @@ def assemble_plain(table: torch.Tensor, res: int, f: int, gamma: float):
     b, s_count = table.shape[:2]
     dev = table.device
     qx, qy = _iota(res, dev)
-    g = torch.tensor(gamma, dtype=torch.float32, device=dev)
+    g = table.new_full((), gamma)
 
     def slab(s, c, oy, ox):
         return table[:, s, c, f - oy:f - oy + res, f - ox:f - ox + res]
@@ -167,7 +167,6 @@ def assemble(table: torch.Tensor, res: int, f: int, gamma: float):
             plan["tiles_x"], plan["blocks"], plan["smem"],
             _kernels.stream(table))
     _kernels.check(rc, "genpc_splat_fwd")
-    assemble.launches += 1
     return (acc, wacc), dmax
 
 
@@ -194,7 +193,7 @@ def assemble_bwd_plain(table: torch.Tensor, cots, dmax: torch.Tensor,
     ixf, iyf = torch.floor(px), torch.floor(py)
     s2c = torch.clamp_min(2.0 * s2, 1e-12)
     qx, qy = _iota(res, dev)
-    g = torch.tensor(gamma, dtype=torch.float32, device=dev)
+    g = table.new_full((), gamma)
     z = torch.zeros_like(px)
     d_px, d_py, d_dn, d_s2, d_r, d_g, d_b = (z,) * 7
     for oy, ox in _offsets(f):
@@ -318,7 +317,6 @@ def assemble_bwd_points(table: torch.Tensor, slot_orig: torch.Tensor, cots,
             g_wacc.data_ptr(), dmax.data_ptr(), out.data_ptr(), b, n,
             s_count, res, f, float(gamma), _kernels.stream(table))
     _kernels.check(rc, "genpc_splat_bwd_points")
-    assemble_bwd_points.launches += 1
     return out
 
 

@@ -44,6 +44,8 @@ timings=d)`` fills ``d`` with the flat record of its pass:
   reg_fusion          ``fusion_dedup``, ``fusion_fps``, ``fusion_outliers``
   metric              FPS and CD/EMD (the pass)
   pose_*:steps        the Adam steps of a pose phase
+  pose_*:graph_steps  those replayed as one CUDA graph (0 off the card)
+  pose_*:captures     the CUDA graphs the phase captured (0 off the card)
   <stage>:syncs       synchronizing CUDA operations inside the span
   ==================  =====================================================
 

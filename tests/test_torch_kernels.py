@@ -554,6 +554,62 @@ def test_pose_step_is_deterministic(dev):
     assert torch.isfinite(outs[0]["best"]).all()
 
 
+@pytest.mark.parametrize("b,k,n,res", [(13, 4, 512, 112), (1, 1, 2048, 224)],
+                         ids=["coarse_b13", "per_object_fine"])
+def test_pose_graph_equals_the_eager_steps(dev, b, k, n, res):
+    # pose_carry_steps replays one CUDA graph of the step after its eager
+    # warm-up: 10 steps give the eager loop's carry bit for bit (traced
+    # and untraced), count their replays, and, with K1's trace on, time
+    # each of the 2 K1 launches of every step
+    from genpc_tpu_torch.registration.pose_optim import (
+        WARMUP_STEPS, pose_carry_init, pose_carry_steps, pose_step,
+        prune_starts)
+    from genpc_tpu_torch.tracing import recording, span
+    g = np.random.default_rng(17)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    comp = t(g.normal(size=(b, n, 3)) * [0.25, 0.2, 0.15])
+    part = t(g.normal(size=(b, n, 3)) * [0.25, 0.2, 0.15])
+    cols, pcols = t(g.random((b, n, 3))), t(g.random((b, n, 3)))
+    carry = pose_carry_init(comp, cols, part, pcols, 0.02, res)
+    if k < 4:
+        carry = prune_starts(carry, carry, k)
+    args = (comp, cols, part, 0.02, 0.01)
+    step = pose_step(carry, *args, res)
+    state = {key: carry[key] for key in ("params", "opt", "best",
+                                         "best_params")}
+    for _ in range(10):
+        state = step(state)
+    launches = _nn.launches
+    _nn.trace = []
+    try:
+        with recording() as rec:
+            with span("pose_coarse"):
+                traced = pose_carry_steps(carry, *args, 10, res)
+        trace = _nn.trace
+    finally:
+        _nn.trace = None
+    untraced = pose_carry_steps(carry, *args, 10, res)
+    torch.cuda.synchronize()
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return all(same(x[key], y[key]) for key in x)
+        return torch.equal(x, y)
+
+    assert same(state, traced) and same(state, untraced)
+    assert torch.isfinite(state["best"]).all()
+    flat = rec.flat()
+    assert flat["pose_coarse:graph_steps"] == 10 - WARMUP_STEPS
+    assert flat["pose_coarse:captures"] == 1
+    assert len(trace) == 2 * 10 and _nn.launches == launches + 2 * 10 * 2
+    for shape, start, end in trace:
+        ms = start.elapsed_time(end)
+        assert shape[0] == b * k and np.isfinite(ms) and ms > 0
+
+
 def test_splat_launch_counters(dev):
     table, slot_orig, cots, _ = _tables("cpu", r=1, n=300, res=32)
     before = (assemble.launches, assemble_bwd_points.launches)

@@ -393,6 +393,30 @@ def test_pose_carry_steps_from_shared_carry():
     np.testing.assert_allclose(got["best"].numpy(), ref["best"], rtol=5e-5)
 
 
+def test_pose_step_makes_no_host_copy(monkeypatch):
+    # every constant of the step is made on the device (a CUDA graph can
+    # capture the step only so): with torch.tensor and torch.as_tensor
+    # raising, 3 steps give the bits they give without the patch
+    comp, ccol, part, pcol = map(_t, _pose_inputs())
+    carry = tpose.pose_carry_init(comp, ccol, part, pcol, 0.02, 32)
+    want = tpose.pose_carry_steps(carry, comp, ccol, part, 0.02, 0.01, 3, 32)
+
+    def host_copy(*_a, **_k):
+        raise AssertionError("a host-to-device copy in the pose step")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "tensor", host_copy)
+        mp.setattr(torch, "as_tensor", host_copy)
+        got = tpose.pose_carry_steps(carry, comp, ccol, part, 0.02, 0.01, 3,
+                                     32)
+    def same(a, b):
+        if isinstance(a, dict):
+            return all(same(a[k], b[k]) for k in a)
+        return torch.equal(a, b)
+
+    assert same(want, got)
+
+
 @pytest.mark.parametrize("prune_to", [0, 1])
 def test_batched_pose_optim_matches(prune_to):
     # 40 iterations: the coarse phase (28 steps on the FPS subsample)
