@@ -24,7 +24,12 @@ reference:
     one CUDA graph replay (``graphs.graphed_call``);
   * the initial latents come from one generator per object, seeded by
     the backend's seed and a running object counter, so grouping objects
-    into batches changes no image.
+    into batches changes no image;
+  * the first Euler step's velocity of each object is kept, copied on
+    the device inside the loop and to the host once the images are
+    (``first_velocity``, of the last call), and the ``denoise`` span
+    counts the batch rows and the image and text positions of every
+    step (``rows``, ``img_tokens``, ``txt_tokens``).
 ``denoise_latents`` is pure: it takes its N(0, 1) draws.  ``quant_bits``
 (the MMDiT) and ``tower_quant_bits`` (Qwen2.5-VL or T5) default, as in
 the reference, to int4 at full size and bf16 below; 8 and 0 build too
@@ -35,7 +40,9 @@ frees Qwen's tower but not FLUX's T5).
 ``FluxInpainter.paint`` fills the hole of an image with the FLUX sampler
 (its own ``DiTDepthEdit("flux")``): after each Euler step the latents
 outside the hole are replaced by the known image's latents re-noised to
-the next flow time, and the decoded image keeps the known pixels.
+the next flow time, and the decoded image keeps the known pixels.  It
+keeps the call's first velocity and counts in its ``inpaint`` span as
+``generate_batch`` does in ``denoise``.
 """
 
 from __future__ import annotations
@@ -146,6 +153,9 @@ class DiTDepthEdit:
         self.seed = seed
         self._noise_ctr = 0
         self.steps, self.guidance = SETTINGS[variant]
+        #: the last ``generate_batch``'s first-step velocities [B, C, h, w]
+        #: (host, fp32)
+        self.first_velocity: Optional[np.ndarray] = None
         self._ready = False
         self._graphs: Dict[tuple, GraphedCall] = {}
 
@@ -249,11 +259,11 @@ class DiTDepthEdit:
     def sample_step(self, latents, i, cond_lat, *args):
         """One sampler step for B objects: i a [1] step index; ``args``
         the conditioning tensors of ``encode_prompts``, then the
-        scheduler."""
+        scheduler.  Returns (the next latents, the step's velocity)."""
         *cond, sched = args
         t = at(sched.timesteps, i).expand(latents.shape[0])
-        return sched.step(self.velocity(latents, t, cond_lat, *cond), i,
-                          latents)
+        v = self.velocity(latents, t, cond_lat, *cond)
+        return sched.step(v, i, latents), v
 
     def _step(self, sched, tensors):
         """``sample_step`` as the loop runs it: eagerly on the CPU; on the
@@ -265,15 +275,19 @@ class DiTDepthEdit:
 
     @torch.inference_mode()
     def denoise_latents(self, cond_lat, cond: Sequence[torch.Tensor],
-                        latents, steps: int) -> torch.Tensor:
+                        latents, steps: int):
         """The rectified-flow loop, pure: ``latents`` [B, C, h, w] are the
-        N(0, 1) draws, ``cond`` what ``encode_prompts`` returns."""
+        N(0, 1) draws, ``cond`` what ``encode_prompts`` returns ->
+        (the final latents, the first step's velocity [B, C, h, w])."""
         sched = FlowMatchEuler(steps, device=latents.device)
-        x = latents
+        x, v0 = latents, None
         for i in range(steps):
             idx = torch.tensor([i], device=latents.device)
-            x = self._step(sched, [x, idx, cond_lat, *cond]).clone()
-        return x
+            x, v = self._step(sched, [x, idx, cond_lat, *cond])
+            x = x.clone()
+            if i == 0:
+                v0 = v.clone()
+        return x, v0
 
     @torch.inference_mode()
     def decode(self, latents) -> torch.Tensor:
@@ -336,18 +350,33 @@ class DiTDepthEdit:
         latents = self.draws(len(depths01), size // self.factor)
         steps = num_inference_steps or self.steps
         with span("denoise", sync=self.device):
-            count("steps", steps)
-            lat = self.denoise_latents(self.cond_latents(depths01), cond,
-                                       latents, steps)
+            count_positions(steps, latents, cond[0], self.dit_cfg.patch_size)
+            lat, v0 = self.denoise_latents(self.cond_latents(depths01), cond,
+                                           latents, steps)
         with span("decode", sync=self.device):
             img = self.decode(lat)
-        return img.permute(0, 2, 3, 1).cpu().numpy()
+            out = img.permute(0, 2, 3, 1).cpu().numpy()
+        self.first_velocity = v0.cpu().numpy()
+        return out
 
     def generate(self, depth, category_or_flag: str, size: int = 512,
                  num_inference_steps: Optional[int] = None) -> np.ndarray:
         """Depth [3,H,W] or [H,W,3] in [0, 1] -> RGB [size, size, 3]."""
         return self.generate_batch([depth], [category_or_flag], size,
                                    num_inference_steps)[0]
+
+
+def count_positions(steps: int, latents: torch.Tensor, txt: torch.Tensor,
+                    patch: int) -> None:
+    """The open spans' counters of a sampler loop: ``steps``, and the
+    batch rows (``rows``), the latents' image positions (``img_tokens``)
+    and the text positions (``txt_tokens``) of its steps, summed over the
+    steps."""
+    b, _, h, w = latents.shape
+    count("steps", steps)
+    count("rows", b * steps)
+    count("img_tokens", b * (h // patch) * (w // patch) * steps)
+    count("txt_tokens", b * txt.shape[1] * steps)
 
 
 class FluxInpainter:
@@ -359,6 +388,8 @@ class FluxInpainter:
         self.backend = DiTDepthEdit(cfg, variant="flux", seed=seed)
         self.device = self.backend.device
         self._calls = 0
+        #: the last paint's first-step velocity [C, h, w] (host, fp32)
+        self.first_velocity: Optional[np.ndarray] = None
 
     def release(self) -> None:
         self.backend.release()
@@ -366,19 +397,20 @@ class FluxInpainter:
     def inpaint_step(self, latents, i, cond_lat, txt, pooled, known_c,
                      noise, hole, sched):
         """One Euler step, then outside the hole the known latents
-        re-noised to the next flow time, (1 - t) x0 + t noise."""
-        x = self.backend.sample_step(latents, i, cond_lat, txt, pooled,
-                                     sched)
+        re-noised to the next flow time, (1 - t) x0 + t noise; returns
+        (those latents, the step's velocity)."""
+        x, v = self.backend.sample_step(latents, i, cond_lat, txt, pooled,
+                                        sched)
         t_next = sched.t_next(i)
         known_t = (1.0 - t_next) * known_c + t_next * noise
-        return torch.where(hole, x, known_t)
+        return torch.where(hole, x, known_t), v
 
     @torch.inference_mode()
-    def inpaint_image(self, known, mask, txt, pooled, noise,
-                      steps: int) -> torch.Tensor:
+    def inpaint_image(self, known, mask, txt, pooled, noise, steps: int):
         """Pure sampler: known [1, 3, H, W] in [-1, 1], mask [H, W] (> 0.5
-        a hole pixel), noise [1, C, H/f, W/f] the N(0, 1) draw -> [1, 3, H,
-        W] in [0, 1] with the known pixels kept."""
+        a hole pixel), noise [1, C, H/f, W/f] the N(0, 1) draw -> ([1, 3,
+        H, W] in [0, 1] with the known pixels kept, the first step's
+        velocity [1, C, H/f, W/f])."""
         be = self.backend
         f = be.factor
         known_lat = be.vae.encode(known)
@@ -388,16 +420,20 @@ class FluxInpainter:
         hole = mask.reshape(h // f, f, w // f, f).amax(dim=(1, 3)) > 0.5
         hole = hole[None, None]
         sched = FlowMatchEuler(steps, device=noise.device)
-        x = noise
+        x, v0 = noise, None
         for i in range(steps):
             idx = torch.tensor([i], device=noise.device)
-            x = graphed_call(
+            x, v = graphed_call(
                 be._graphs, ("inpaint", steps, be.guidance),
                 lambda *a: self.inpaint_step(*a, sched),
                 [x, idx, cond_lat, txt, pooled, known_c, noise, hole],
-                be.device).clone()
+                be.device)
+            x = x.clone()
+            if i == 0:
+                v0 = v.clone()
         img = be.decode(x)
-        return torch.where(mask[None, None] > 0.5, img, known / 2.0 + 0.5)
+        return torch.where(mask[None, None] > 0.5, img,
+                           known / 2.0 + 0.5), v0
 
     def paint_draws(self, latent_hw: int) -> torch.Tensor:
         """N(0, 1) latents [1, C, h, w] of this call: a generator keyed
@@ -428,10 +464,11 @@ class FluxInpainter:
             txt, pooled = be.encode_flux([prompt])
         noise = self.paint_draws(x.shape[0] // be.factor)
         with span("inpaint", sync=self.device):
-            count("steps", steps)
+            count_positions(steps, noise, txt, be.dit_cfg.patch_size)
             known = torch.from_numpy(np.ascontiguousarray(
                 (x * 2 - 1).transpose(2, 0, 1))[None]).to(self.device)
-            out = self.inpaint_image(known, torch.from_numpy(m).to(
+            out, v0 = self.inpaint_image(known, torch.from_numpy(m).to(
                 self.device), txt, pooled, noise, steps)
             out = out[0].permute(1, 2, 0).cpu().numpy()
+        self.first_velocity = v0[0].cpu().numpy()
         return out.transpose(2, 0, 1) if chw else out

@@ -445,12 +445,16 @@ def _generate_images(cfg, dp, arts) -> None:
             grp = arts[lo:lo + ob]
             imgs = gen.generate_batch([a.depth for a in grp],
                                       [a.flag for a in grp], size=size)
-            for art, img in zip(grp, imgs):
+            v0 = getattr(gen, "first_velocity", None)
+            for j, (art, img) in enumerate(zip(grp, imgs)):
                 art.image = np.asarray(img)
+                art.gen_v0 = None if v0 is None else v0[j]
         return
     for art in arts:
         art.image = np.asarray(gen.generate(
             art.depth, get_category(art.flag), size=size))
+        v0 = getattr(gen, "first_velocity", None)
+        art.gen_v0 = None if v0 is None else v0[0]
 
 
 def _pad_to_dp(arts: List[ObjectArtifacts], mesh) -> List[ObjectArtifacts]:
@@ -817,3 +821,4 @@ def batched_stage1(cfg, arts: List[ObjectArtifacts],
         art.mask = m2[i] if name == "DDNM" else m1[i]
         art.depth = depth[i] if name == "jax" else paint_depth(
             cfg, inpainter, raw[i], m1[i], m2[i])
+        art.paint_v0 = getattr(inpainter, "first_velocity", None)

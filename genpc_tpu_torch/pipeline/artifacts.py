@@ -36,6 +36,9 @@ class ObjectArtifacts:
     depth: Optional[np.ndarray] = None          # [3,res,res] inpainted
     mask: Optional[np.ndarray] = None           # [3,res,res]
     image: Optional[np.ndarray] = None          # [H,W,3] generated RGB
+    # first Euler-step velocities of a diffusion paint and generation
+    paint_v0: Optional[np.ndarray] = None       # [C,h,w] (FLUX inpainter)
+    gen_v0: Optional[np.ndarray] = None         # [C,h,w] (a DiT backend)
     # Stage 2 (scale adapter)
     image_nobg: Optional[np.ndarray] = None     # [H,W,4] RGBA
     color_xyz: Optional[np.ndarray] = None      # colored partial cloud

@@ -46,6 +46,10 @@ timings=d)`` fills ``d`` with the flat record of its pass:
   pose_*:steps        the Adam steps of a pose phase
   pose_*:graph_steps  those replayed as one CUDA graph (0 off the card)
   pose_*:captures     the CUDA graphs the phase captured (0 off the card)
+  inpaint, denoise    a FLUX paint's, a DiT generation's sampler loop
+  <loop>:steps        its steps; ``:rows``, ``:img_tokens``, ``:txt_tokens``
+                      the batch rows, latent image and text positions of
+                      its steps, summed over them
   <stage>:syncs       synchronizing CUDA operations inside the span
   ==================  =====================================================
 
