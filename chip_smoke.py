@@ -34,7 +34,12 @@ Phases (any failure exits non-zero; nothing is caught):
      that the host's enqueue stays outside the interval), and the least
      time the card could take for the same work (bytes at 3.35 TB/s or
      fp32 operations at 67 TFLOP/s, whichever is larger: the H100 SXM
-     data sheet);
+     data sheet); K6 (the int4 weight-only matmul) at every launch class
+     of the FLUX, T5 and Qwen2.5-VL int4 layers (K6_CLASSES) against its
+     plain twin, with its time, the plain twin's, cuBLAS's bf16 GEMM on
+     the weight dequantised beforehand (the library's yardstick) and its
+     bound (bf16 tensor-core flops, or the packed weight's bytes on the
+     CUDA-core path);
   4. the main paths: first small-input checks, card against host, on two
      data seeds (run_batched on both of its paths, run_pipeline, and
      run_batched_lidar over PED scans with a held-out wedge; the
@@ -736,6 +741,89 @@ def check_k3(dev, shape=K3_SHAPE):
             "library_ms": library_ms, **bd}
 
 
+#: K6's launch classes (rows M, in K, out N, compute dtype): the FLUX
+#: MMDiT's int4 block matmuls (attention projections, MLP in and out, the
+#: single blocks' output projection) at a paint's image and text streams
+#: and single blocks (256, 512, 768 rows) and the B = 3 generation's
+#: (3,072, 1,536, 4,608); the fp32 AdaLN modulations at B = 1 and 3;
+#: T5-XXL at 512 tokens; Qwen2.5-VL's vision MLP (K or N 3,420: ragged)
+K6_CLASSES = (
+    [(m, k, n, "bf16") for k, n in ((3072, 3072), (3072, 12288),
+                                    (12288, 3072), (15360, 3072))
+     for m in (256, 512, 768, 1536, 3072, 4608)]
+    + [(m, 3072, n, "fp32") for n in (18432, 9216) for m in (1, 3)]
+    + [(512, k, n, "bf16") for k, n in ((4096, 4096), (4096, 10240),
+                                       (10240, 4096))]
+    + [(1000, 1280, 3420, "bf16"), (1000, 3420, 1280, "bf16")])
+#: the card's dense bf16 tensor-core peak (H100 SXM data sheet)
+BF16_TC_FLOPS = 989.4e12
+
+
+def check_k6(dev, classes=K6_CLASSES):
+    """K6 (int4 weight-only matmul) against its plain twin at every launch
+    class: bf16 outputs within one bf16 ulp of the plain result, or within
+    the fp32 summation bound (4·K·2^-24·Σ|x c|·scale) of it where that
+    result is itself within the bound of 0; fp32 outputs within that
+    bound.  Times: the kernel, the plain twin, and as the library's
+    yardstick cuBLAS on the weight dequantised beforehand (timed here
+    only: the port never calls it); the bound is 2MNK flops at the bf16
+    tensor-core peak on the tensor-core path, the packed weight's N·K/2
+    bytes at the memory rate on the CUDA-core path (fp32)."""
+    import torch
+    from genpc_tpu_torch.models.quant import (_scale_bias, matmul_f32,
+                                              pack_int4, unpack_int4,
+                                              w4_linear, w4_linear_plain)
+    out = []
+    for m, k, n, dt in classes:
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        g = torch.Generator(device=dev).manual_seed(m + k + n)
+        x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        w = pack_int4(torch.randint(-7, 8, (n, k), generator=g, device=dev,
+                                    dtype=torch.int8))
+        scale = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+        bias = torch.randn(n, generator=g, device=dev) * 0.1
+        got = w4_linear(x, w, scale, bias)
+        y32 = _scale_bias(matmul_f32(x, unpack_int4(w, dtype)), scale, bias)
+        sabs = (x.float().abs() @ unpack_int4(w, torch.float32).abs().T) \
+            * scale
+        tol = 4 * k * 2.0 ** -24 * sabs + 2 * 2.0 ** -24 * y32.abs()
+        diff = (got.float() - y32.to(dtype).float()).abs()
+        if dtype == torch.float32:
+            ok = diff <= tol
+        else:
+            _, e = torch.frexp(torch.maximum(got.float().abs(),
+                                             y32.to(dtype).float().abs()))
+            ulp = torch.ldexp(torch.ones_like(diff), e - 8)
+            ok = (diff <= ulp) | ((y32.abs() <= tol) & (diff <= tol + ulp))
+        bad = int((~ok).sum())
+        del sabs, tol, y32
+        ms = cuda_ms(lambda: w4_linear(x, w, scale, bias), reps=5)
+        plain_ms = cuda_ms(lambda: w4_linear_plain(x, w, scale, bias),
+                           reps=3)
+        wd = unpack_int4(w, dtype)
+        library_ms = cuda_ms(lambda: torch.mm(x, wd.t()), reps=5)
+        del wd
+        core = dtype == torch.float32
+        bound_ms = (n * k / 2 / HBM_BYTES_PER_S if core
+                    else 2.0 * m * n * k / BF16_TC_FLOPS) * 1e3
+        rec = {"shape": (m, k, n, dt), "path": "cuda_core" if core
+               else "tensor_core", "max_abs_err": float(diff.max()),
+               "outside": bad, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes" if core else "operations"}
+        log(f"K6 w4_gemm M={m} K={k} N={n} {dt} ({rec['path']}): max |err| "
+            f"{rec['max_abs_err']:.3e}, {bad} outside the tolerance; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS on the "
+            f"dequantised weight {library_ms:.4f} ms, bound {bound_ms:.4f} "
+            f"ms ({rec['bound_by']})")
+        if bad:
+            fail(f"K6 {rec['shape']}: {bad} outputs outside the tolerance")
+        out.append(rec)
+        del x, w, got, diff
+        torch.cuda.empty_cache()
+    return out
+
+
 def _pose_tables(dev, res, n_pts, n_obj=13, seed=3):
     """Slot tables of the pose path: n_obj synthetic objects' completions
     (voxel 0.02, resampled to n_pts) under the 4 start rotations about y,
@@ -930,23 +1018,34 @@ KERNELS = [
                    "assemble_bwd_points"),
      "genpc_tpu_torch/csrc/splat.cu",
      "genpc_tpu/render/splat_kernel.py:201"),
+    # K6's two paths (its C entries), replacing no Pallas kernel
+    ("w4_gemm", ("genpc_tpu_torch.models.quant", "_w4_gemm"),
+     "genpc_tpu_torch/csrc/w4_gemm.cu", None),
+    ("w4_gemv", ("genpc_tpu_torch.models.quant", "_w4_gemv"),
+     "genpc_tpu_torch/csrc/w4_gemm.cu", None),
 ]
+#: the point-cloud kernels, K1-K5
+CLOUD = ("chamfer_nn", "fps", "emd_bid", "splat_fwd", "splat_bwd")
+#: K6, on the paths with int4 layers: the FLUX MMDiT and T5 (the Qwen
+#: paths run bf16 weights)
+INT4 = ("w4_gemm", "w4_gemv")
 #: the kernels each main path must launch (the Waymo paths score by UHD,
 #: with no EMD)
 PATH_KERNELS = {"aligned": ("chamfer_nn", "fps", "emd_bid"),
-                "registration": tuple(k[0] for k in KERNELS),
-                "per_object": tuple(k[0] for k in KERNELS),
+                "registration": CLOUD,
+                "per_object": CLOUD,
                 "lidar_car": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
                 "lidar_ped": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
                 "run_lidar": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
-                "controlnet": tuple(k[0] for k in KERNELS),
-                "instantmesh": tuple(k[0] for k in KERNELS),
-                "qwen": tuple(k[0] for k in KERNELS),
-                "config4": tuple(k[0] for k in KERNELS),
-                "flux": tuple(k[0] for k in KERNELS),
-                "config5": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd"),
+                "controlnet": CLOUD,
+                "instantmesh": CLOUD,
+                "qwen": CLOUD,
+                "config4": CLOUD,
+                "flux": CLOUD + INT4,
+                "config5": ("chamfer_nn", "fps", "splat_fwd", "splat_bwd")
+                + INT4,
                 "mesh_aligned": ("chamfer_nn", "fps", "emd_bid"),
-                "mesh_registration": tuple(k[0] for k in KERNELS)}
+                "mesh_registration": CLOUD}
 #: K2 launches in a timed pass: stage 1, the fusion tail (one launch over
 #: all objects) and the metric's prediction side (the GT side is cached
 #: from the warm-up), plus the pose path's two subsamples on registration
@@ -3517,6 +3616,9 @@ def main() -> int:
     check_k3(dev, K3_SHAPE_IM)
     for shape in K3_SHAPES_DP:
         check_k3(dev, shape)
+    k6 = check_k6(dev)
+    for name, path in (("w4_gemm", "tensor_core"), ("w4_gemv", "cuda_core")):
+        report[name] = {"classes": [r for r in k6 if r["path"] == path]}
 
     # 4. the main paths
     from genpc_tpu_torch.categories import REDWOOD_FLAGS

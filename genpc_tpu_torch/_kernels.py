@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from genpc_tpu_torch import tracing
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,6 +60,10 @@ _SIGNATURES = {
     # dmax, out, B, N, S, res, f, gamma, stream
     "genpc_splat_bwd_points": [_P, _L, _P, _P, _P, _L, _L, _L, _L, _P, _P,
                                _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, w, scale, bias, y, M, N, K, ldx, bm, stream
+    "genpc_w4_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, bias, y, M, N, K, mt, stream
+    "genpc_w4_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -182,12 +188,21 @@ class Elapsed:
         return self.ms
 
 
+def _count(fn) -> None:
+    """One launch of the wrapper ``fn``: into ``fn.launches`` and, where
+    the wrapper names a ``counter``, into that ``tracing`` counter."""
+    fn.launches += 1
+    counter = getattr(fn, "counter", None)
+    if counter is not None:
+        tracing.count(counter)
+
+
 class Captured:
     """The launches of the traced wrappers that one stream capture
     records: ``with Captured() as launches:`` around the capture and
     nothing else (every traced launch inside is taken as captured), then
     ``launches.replayed()`` after each replay of its graph, which counts
-    each launch into its wrapper's ``launches`` and, where the wrapper's
+    each launch (``_count``) and, where the wrapper's
     ``trace`` is a list, appends (shape, ``Elapsed``, None) with the
     launch's device time in that replay.  The time is read from the
     external events the capture recorded around the launch (event-record
@@ -209,7 +224,7 @@ class Captured:
 
     def replayed(self) -> None:
         for fn, shape, start, end in self.launches:
-            fn.launches += 1
+            _count(fn)
             if start is not None and fn.trace is not None:
                 end.synchronize()
                 fn.trace.append((shape, Elapsed(start.elapsed_time(end)),
@@ -224,8 +239,8 @@ _capture: Captured | None = None
 
 @contextlib.contextmanager
 def traced(fn, shape: tuple):
-    """Around one user-level launch of the wrapper ``fn``: counts it in
-    ``fn.launches`` and, when ``fn.trace`` is a list, appends (shape,
+    """Around one user-level launch of the wrapper ``fn``: counts it
+    (``_count``) and, when ``fn.trace`` is a list, appends (shape,
     start, end) with CUDA events recorded on the current stream before
     and after (the launch-shape histogram of chip_smoke.py, the
     benchmark's rooflines).  A launch that a ``Captured`` capture records
@@ -246,6 +261,6 @@ def traced(fn, shape: tuple):
         capture.launches.append((fn, shape) + ((start, end) if timed
                                                else (None, None)))
         return
-    fn.launches += 1
+    _count(fn)
     if timed:
         fn.trace.append((shape, start, end))

@@ -226,6 +226,11 @@ def main(argv=None):
     if rec is not None:
         print()
         rec.report()
+        # the counters (span:counter), among them the int4 layers' paths:
+        # quant_w4 (kernel K6) and quant_w4_plain (its plain twin)
+        for key, n in sorted(rec.flat().items()):
+            if ":" in key:
+                print(f"{key:<40}{n:10.0f}")
     print(f"\n{len(flags)} objects in {wall:.1f}s "
           f"({len(flags) / wall * 60:.2f} objects/min)")
 

@@ -14,6 +14,8 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from genpc_tpu_torch import _kernels
+
 
 class GraphedCall:
     """``fn(*tensors)`` captured once in a CUDA graph on static copies of
@@ -35,13 +37,15 @@ class GraphedCall:
         with torch.cuda.stream(side):
             fn(*self.bufs)
         torch.cuda.current_stream().wait_stream(side)
-        with capture:
+        # the port's kernels in the graph count at each replay, not here
+        with capture, _kernels.Captured() as self.launches:
             self.out = fn(*self.bufs)
 
     def __call__(self, tensors: Sequence[torch.Tensor]):
         for buf, a in zip(self.bufs, tensors):
             buf.copy_(a)
         self.graph.replay()
+        self.launches.replayed()
         return self.out
 
 

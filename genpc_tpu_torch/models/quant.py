@@ -13,29 +13,34 @@ reference's, bit for bit:
     weight is [out, in], so a packed int4 weight is [out, in / 2] (the
     reference stores its kernel transposed, [in / 2, out]);
   * ``QuantLinear`` keeps the int weight, an fp32 scale [out] and an fp32
-    bias, converts the weight to the compute type inside ``forward``
-    (one layer's copy at a time: inside a CUDA graph the copy is a
-    temporary of the graph's pool, freed after its matmul), multiplies
-    with fp32 accumulation into an fp32 product, applies the scale after
-    the product, adds the bias and casts to the compute type.
+    bias, multiplies in the compute type with fp32 accumulation into an
+    fp32 product, applies the scale after the product, adds the bias and
+    casts to the compute type.
 
-No kernel of the port's: the reference's weight-only matmul is XLA (an
-unpack, a convert and a dot with an fp32 result), and here it is plain
-torch: shifts, a convert, and on the card cuBLAS's bf16 GEMM with an
-fp32 output (``torch.mm(..., out_dtype=torch.float32)``); on the CPU,
-which has no such GEMM, the same product in fp32 from the bf16-rounded
-operands (the products are exact in fp32, so only the summation order
-differs).
+An int4 layer is ``w4_linear``: on the card one launch of kernel K6
+(``csrc/w4_gemm.cu``), which reads the packed weight as stored, makes
+the codes in registers, multiplies (tensor cores for a bf16 layer, fp32
+CUDA cores for an fp32 one) and applies
+scale, bias and cast in its epilogue, so no dequantised weight or fp32
+product reaches device memory.  On the CPU it is ``w4_linear_plain``,
+the reference's XLA sequence in torch: an unpack, a convert, the
+product in fp32 from the compute-type operands (the products are exact
+in fp32, so only the summation order differs from the kernel), the
+scale and bias in fp32.  An int8 layer converts its weight to the
+compute type inside ``forward`` (on the card cuBLAS's bf16 GEMM with an
+fp32 output, ``torch.mm(..., out_dtype=torch.float32)``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+import functools
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from genpc_tpu_torch import _kernels, tracing
 from genpc_tpu_torch.models.layers import BF16, F32
 
 #: the largest code of each width (symmetric: -qmax..qmax)
@@ -104,6 +109,138 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(x.shape[:-1] + (w.shape[0],))
 
 
+def _scale_bias(y: torch.Tensor, scale: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The fp32 epilogue: y * scale, plus bias when there is one."""
+    return y * scale if bias is None else torch.addcmul(bias, y, scale)
+
+
+def w4_linear_plain(x: torch.Tensor, weight: torch.Tensor,
+                    scale: torch.Tensor, bias: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """K6's plain twin: x [..., in] in the compute type, the packed int4
+    weight [out, in / 2], fp32 scale and bias [out] -> [..., out] in
+    x's dtype; the weight unpacked and converted whole, the product in
+    fp32, then scale and bias in fp32."""
+    c = x.dtype
+    y = matmul_f32(x, unpack_int4(weight, c))
+    return _scale_bias(y, scale, bias).to(c)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index
+                                            ).multi_processor_count
+
+
+def w4_linear(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """An int4 layer in x's dtype (bf16 or fp32): ``w4_linear_plain`` for
+    a CPU tensor, kernel K6 for a CUDA tensor; any other device raises.
+    Counts ``quant_w4_plain`` (``tracing.count``) a plain call; K6's
+    wrappers count ``quant_w4`` a launch, a CUDA graph's at each replay."""
+    if x.device.type == "cpu":
+        tracing.count("quant_w4_plain")
+        return w4_linear_plain(x, weight, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"w4_linear: no kernel for device {x.device}")
+    c, k = x.dtype, x.shape[-1]
+    n = weight.shape[0]
+    if c not in (BF16, F32):
+        raise TypeError(f"w4_linear: compute dtype {c} (bf16 or fp32)")
+    if weight.dtype != torch.int8 or weight.ndim != 2 or \
+            k != 2 * weight.shape[1] or weight.data_ptr() % 4:
+        raise ValueError(f"w4_linear: x [..., {k}] against a packed weight "
+                         f"{tuple(weight.shape)} {weight.dtype} (4-byte "
+                         f"aligned)")
+    for name, t in (("weight", weight), ("scale", scale), ("bias", bias)):
+        if t is None:
+            continue
+        if t.device != x.device or not t.is_contiguous() or \
+                (name != "weight" and (t.dtype != F32 or t.shape != (n,))):
+            raise ValueError(f"w4_linear: {name} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, x on {x.device}")
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    y = torch.empty((m, n), dtype=c, device=x.device)
+    if c == F32:
+        _w4_gemv(x2.contiguous(), weight, scale, bias, y)
+    else:
+        _w4_gemm(x2, weight, scale, bias, y)
+    return y.reshape(x.shape[:-1] + (n,))
+
+
+#: K6's tensor-core tiles: the rows of x a block takes (against 128
+#: weight rows)
+W4_ROW_TILES = (256, 192, 64)
+
+
+#: the time of a K6 block of 256 and of 192 rows, in rows of the former
+#: (the smaller takes longer a row; fitted to its times on an H100)
+_W4_TILE_COST = {256: 256, 192: 215}
+
+
+def w4_row_tile(m: int, n: int, sms: int) -> int:
+    """The rows of x a K6 block takes for y [m, n] on a card of ``sms``
+    SMs (one block an SM): of 256 and 192 rows, the one whose waves of
+    blocks take the least time, unless both give fewer than half the SMs
+    a block; then 64 (two blocks an SM)."""
+    tiles = -(-n // 128)
+    cost = {bm: -(-(-(-m // bm) * tiles) // sms) * c
+            for bm, c in _W4_TILE_COST.items()
+            if -(-m // bm) * tiles >= sms // 2}
+    return min(cost, key=lambda bm: (cost[bm], -bm)) if cost else 64
+
+
+def _w4_gemm(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+             bias: Optional[torch.Tensor], y: torch.Tensor,
+             bm: Optional[int] = None) -> None:
+    """K6's tensor-core path into y [M, N] (bf16), ``bm`` rows of x a
+    block (``w4_row_tile`` unless given: tests force each; 64 where the
+    weight's rows are not 16-byte aligned, K not a multiple of 32).  TMA
+    reads x's rows 16-byte aligned: x goes first into rows of a padded
+    pitch where they are not."""
+    m, k = x.shape
+    n = weight.shape[0]
+    ldx = -(-k // 8) * 8
+    if ldx != k or not x.is_contiguous() or x.data_ptr() % 16:
+        xp = x.new_empty((m, ldx))
+        xp[:, :k] = x
+        x = xp
+    if bm is None:
+        dev = x.device.index if x.device.index is not None \
+            else torch.cuda.current_device()
+        bm = 64 if k % 32 or weight.data_ptr() % 16 else \
+            w4_row_tile(m, n, _sm_count(dev))
+    with torch.cuda.device(x.device), \
+            _kernels.traced(_w4_gemm, (m, n, k)):
+        rc = _kernels.lib().genpc_w4_gemm(
+            x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
+            _kernels.ptr(bias), y.data_ptr(), m, n, k, ldx, bm,
+            _kernels.stream(x))
+    _kernels.check(rc, "genpc_w4_gemm")
+
+
+def _w4_gemv(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+             bias: Optional[torch.Tensor], y: torch.Tensor) -> None:
+    """K6's CUDA-core path into y [M, N] (x and y fp32): one row of x a
+    block for M = 1, else 4."""
+    m, k = x.shape
+    n = weight.shape[0]
+    mt = 1 if m == 1 else 4
+    with torch.cuda.device(x.device), \
+            _kernels.traced(_w4_gemv, (m, n, k)):
+        rc = _kernels.lib().genpc_w4_gemv(
+            x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
+            _kernels.ptr(bias), y.data_ptr(), m, n, k, mt,
+            _kernels.stream(x))
+    _kernels.check(rc, "genpc_w4_gemv")
+
+
+_w4_gemm.launches, _w4_gemm.trace, _w4_gemm.counter = 0, None, "quant_w4"
+_w4_gemv.launches, _w4_gemv.trace, _w4_gemv.counter = 0, None, "quant_w4"
+
+
 class QuantLinear(nn.Module):
     """A dense layer with an int8 or packed-int4 weight, a per-output
     fp32 scale and an fp32 bias (buffers: the weight is not trained),
@@ -128,12 +265,10 @@ class QuantLinear(nn.Module):
 
     def forward(self, x):
         c = self.compute
-        w = unpack_int4(self.weight, c) if self.bits == 4 \
-            else self.weight.to(c)
-        y = matmul_f32(x.to(c), w)
-        y = y * self.scale if self.bias is None else \
-            torch.addcmul(self.bias, y, self.scale)
-        return y.to(self.compute)
+        if self.bits == 4:
+            return w4_linear(x.to(c), self.weight, self.scale, self.bias)
+        y = matmul_f32(x.to(c), self.weight.to(c))
+        return _scale_bias(y, self.scale, self.bias).to(c)
 
     def extra_repr(self) -> str:
         return (f"in_features={self.in_features}, out_features="

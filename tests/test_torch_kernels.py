@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from genpc_tpu_torch import tracing
+from genpc_tpu_torch.models.quant import (W4_ROW_TILES, _scale_bias,
+                                          _w4_gemm, _w4_gemv, matmul_f32,
+                                          pack_int4, unpack_int4, w4_linear)
 from genpc_tpu_torch.ops.chamfer import (_launch, _nn, _nn_plain, _sq_dist,
                                          chamfer_nn, nn_plan)
 from genpc_tpu_torch.ops.emd_kernel import _launch as bid_launch
@@ -623,3 +627,177 @@ def test_splat_launch_counters(dev):
     torch.cuda.synchronize()
     assert (assemble.launches, assemble_bwd_points.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+# ------------------------------------------------------------------ K6 ---
+def _w4_inputs(dev, m, k, n, dtype=torch.bfloat16, seed=0, bias=True):
+    """Seeded x [m, k], a packed int4 weight [n, k / 2] of codes -7..7,
+    fp32 scale and bias [n] (scales of a 3,072-wide FLUX layer's size)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    codes = torch.randint(-7, 8, (n, k), generator=g, device=dev,
+                          dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+    b = torch.randn(n, generator=g, device=dev) * 0.1 if bias else None
+    return x, pack_int4(codes), scale, b
+
+
+def _w4_check(x, w, scale, bias, got):
+    """K6's result against its plain twin's on the card.  Both multiply
+    exact operands (bf16 or fp32 x, integer codes) and sum in fp32 in
+    their own orders, so each sum lies within K·u·Σ|x c| of the exact one
+    (u = 2^-24; the tensor cores' accumulation counted twice over:
+    bound = 4·K·u·Σ|x c|·scale, plus the epilogue's two fp32 roundings).
+    fp32 outputs: within that bound.  bf16 outputs: within one bf16 ulp
+    of the plain result (the two fp32 values round to neighbouring bf16
+    values at most), or, where the plain fp32 value is itself within the
+    bound of 0, within the bound plus that ulp."""
+    c, k = x.dtype, x.shape[1]
+    y32 = _scale_bias(matmul_f32(x, unpack_int4(w, c)), scale, bias)
+    want = y32.to(c)
+    sabs = (x.float().abs() @ unpack_int4(w, torch.float32).abs().T) * scale
+    bound = 4 * k * 2.0 ** -24 * sabs + 2 * 2.0 ** -24 * y32.abs()
+    diff = (got.float() - want.float()).abs()
+    assert got.dtype == c and got.shape == want.shape
+    if c == torch.float32:
+        assert (diff <= bound).all(), float((diff - bound).max())
+        return
+    _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+    ulp = torch.ldexp(torch.ones_like(diff), e - 8)
+    near0 = y32.abs() <= bound
+    ok = (diff <= ulp) | (near0 & (diff <= bound + ulp))
+    assert ok.all(), (int((~ok).sum()), float(diff.max()))
+
+
+#: (K, N) of the FLUX MMDiT's int4 block matmuls: the attention
+#: projections, the MLP in and out, the single blocks' output projection
+FLUX_W4 = [(3072, 3072), (3072, 12288), (12288, 3072), (15360, 3072)]
+#: the rows they run at: a paint's image and text streams and its single
+#: blocks (256, 512, 768), the B = 3 generation's (3,072, 1,536, 4,608)
+FLUX_ROWS = [256, 512, 768, 1536, 3072, 4608]
+
+
+@pytest.mark.parametrize("m", FLUX_ROWS)
+@pytest.mark.parametrize("k,n", FLUX_W4)
+def test_k6_flux_block_shapes_match_plain(dev, k, n, m):
+    x, w, scale, bias = _w4_inputs(dev, m, k, n, seed=m + n)
+    _w4_check(x, w, scale, bias, w4_linear(x, w, scale, bias))
+
+
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [18432, 9216])
+def test_k6_fp32_modulations_match_plain(dev, n, m):
+    # the AdaLN modulations: fp32 activations at the batch's rows
+    x, w, scale, bias = _w4_inputs(dev, m, 3072, n, torch.float32, seed=n)
+    _w4_check(x, w, scale, bias, w4_linear(x, w, scale, bias))
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 10240),
+                                 (10240, 4096)])
+def test_k6_t5_shapes_match_plain(dev, k, n):
+    # T5-XXL's q/k/v/o, wi_0/wi_1 and wo at 512 tokens, no bias
+    x, w, scale, _ = _w4_inputs(dev, 512, k, n, seed=k + n, bias=False)
+    _w4_check(x, w, scale, None, w4_linear(x, w, scale, None))
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (1000, 1280, 3420, torch.bfloat16),    # Qwen2.5-VL vision MLP in
+    (1000, 3420, 1280, torch.bfloat16),    # and out: K = 3,420 (ragged)
+    (7, 3420, 1280, torch.bfloat16),       # 7 rows of a 64-row tile, ragged K
+    (40, 3072, 1000, torch.float32),       # fp32 at 40 rows: 3 row blocks
+    (5, 3072, 3072, torch.bfloat16),       # bf16 at a few rows: masked
+    (16, 3072, 3072, torch.bfloat16),      # rows of one 64-row tile
+    (17, 3072, 3072, torch.bfloat16),
+    (300, 3104, 200, torch.bfloat16),      # K % 64 = 32, M and N ragged
+])
+def test_k6_ragged_and_small_shapes_match_plain(dev, m, k, n, dtype):
+    x, w, scale, bias = _w4_inputs(dev, m, k, n, dtype, seed=m + k)
+    _w4_check(x, w, scale, bias, w4_linear(x, w, scale, bias))
+
+
+@pytest.mark.parametrize("bm", W4_ROW_TILES)
+def test_k6_every_row_tile_matches_plain(dev, bm):
+    x, w, scale, bias = _w4_inputs(dev, 1000, 3072, 1536, seed=bm)
+    y = torch.empty((1000, 1536), dtype=torch.bfloat16, device=dev)
+    _w4_gemm(x, w, scale, bias, y, bm=bm)
+    _w4_check(x, w, scale, bias, y)
+
+
+def test_k6_misaligned_input_matches_plain(dev):
+    # a contiguous x starting 2 bytes into its storage
+    x, w, scale, bias = _w4_inputs(dev, 300, 3072, 256, seed=5)
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=dev)
+    xm = buf[1:1 + x.numel()].view_as(x)
+    xm.copy_(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16
+    _w4_check(x, w, scale, bias, w4_linear(xm, w, scale, bias))
+
+
+@pytest.mark.parametrize("m,dtype", [(3, torch.float32),
+                                     (768, torch.bfloat16),
+                                     (4608, torch.bfloat16)])
+def test_k6_repeats_bitwise_and_replays_in_a_graph(dev, m, dtype):
+    x, w, scale, bias = _w4_inputs(dev, m, 3072, 3072, dtype, seed=m)
+    eager = w4_linear(x, w, scale, bias)
+    assert torch.equal(eager, w4_linear(x, w, scale, bias))
+    static = x.clone()
+    graph = torch.cuda.graph
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w4_linear(static, w, scale, bias)
+    torch.cuda.current_stream().wait_stream(side)
+    with graph(g):
+        out = w4_linear(static, w, scale, bias)
+    static.zero_()
+    g.replay()
+    static.copy_(x)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_k6_raises_rather_than_falling_back(dev):
+    x, w, scale, bias = _w4_inputs(dev, 64, 256, 128)
+    with pytest.raises(TypeError):
+        w4_linear(x.half(), w, scale, bias)
+    with pytest.raises(ValueError):
+        w4_linear(x, w.cpu(), scale, bias)          # weight on the host
+    with pytest.raises(ValueError):
+        w4_linear(x, w, scale.cpu(), bias)
+    with pytest.raises(ValueError):
+        w4_linear(x[:, :128], w, scale, bias)       # K against in / 2
+    with pytest.raises(ValueError):
+        w4_linear(x, w.view(torch.uint8), scale, bias)
+
+
+def test_k6_counts_its_launches(dev):
+    x, w, scale, bias = _w4_inputs(dev, 64, 256, 128)
+    before = (_w4_gemm.launches, _w4_gemv.launches)
+    with tracing.recording() as rec, tracing.span("outer"):
+        w4_linear(x, w, scale, bias)
+        w4_linear(x[:3].float(), w, scale, bias)
+        w4_linear(x.cpu(), w.cpu(), scale.cpu(), bias.cpu())
+    assert (_w4_gemm.launches, _w4_gemv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    flat = rec.flat()
+    assert flat["outer:quant_w4"] == 2 and flat["outer:quant_w4_plain"] == 1
+
+
+def test_k6_in_a_graphed_call_counts_each_replay(dev):
+    # the denoise steps' CUDA graph: the eager warm-up launches once, the
+    # capture launches nothing, each replay launches once more
+    from genpc_tpu_torch.models.graphs import graphed_call
+    x, w, scale, bias = _w4_inputs(dev, 256, 256, 128)
+    cache = {}
+    before = _w4_gemm.launches
+    with tracing.recording() as rec, tracing.span("steps"):
+        for _ in range(3):
+            got = graphed_call(cache, (), lambda a: w4_linear(a, w, scale,
+                                                              bias),
+                               [x], dev).clone()
+    torch.cuda.synchronize()
+    assert _w4_gemm.launches == before + 4
+    assert rec.flat()["steps:quant_w4"] == 4
+    assert torch.equal(got, w4_linear(x, w, scale, bias))

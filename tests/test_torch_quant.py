@@ -114,6 +114,108 @@ def test_quant_linear_matches_quant_dense(bits, mode):
     close(got.float(), np.asarray(ref, np.float32), TOL[mode])
 
 
+def _w4_layer(compute, bias=True, seed=4):
+    """A QuantLinear(64 -> 24, int4) with seeded codes, scale and bias, and
+    an input [2, 3, 64] in its compute type."""
+    g = torch.Generator().manual_seed(seed)
+    m = tq.QuantLinear(64, 24, 4, bias=bias, compute=compute)
+    state = {"weight": tq.pack_int4(torch.randint(-7, 8, (24, 64),
+                                                  generator=g)),
+             "scale": torch.rand(24, generator=g) * 0.1 + 1e-3}
+    if bias:
+        state["bias"] = torch.randn(24, generator=g)
+    m.load_state_dict(state)
+    return m, torch.randn(2, 3, 64, generator=g).to(compute)
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_quant_linear_int4_takes_the_plain_path_on_the_cpu(compute, bias):
+    """On the CPU an int4 QuantLinear is K6's plain twin, bit for bit the
+    unpack, fp32 product, scale, bias and cast it always was, and counts
+    one ``quant_w4_plain`` a call and no kernel launch."""
+    from genpc_tpu_torch import tracing
+    m, x = _w4_layer(compute, bias)
+    launches = (tq._w4_gemm.launches, tq._w4_gemv.launches)
+    with tracing.recording() as rec, tracing.span("fwd"), torch.no_grad():
+        got = m(x)
+        m(x[0])
+    y = tq.matmul_f32(x, tq.unpack_int4(m.weight, compute))
+    y = y * m.scale if m.bias is None else torch.addcmul(m.bias, y, m.scale)
+    assert got.dtype == compute and torch.equal(got, y.to(compute))
+    assert torch.equal(got, tq.w4_linear_plain(x, m.weight, m.scale, m.bias))
+    flat = rec.flat()
+    assert flat["fwd:quant_w4_plain"] == 2 and "fwd:quant_w4" not in flat
+    assert (tq._w4_gemm.launches, tq._w4_gemv.launches) == launches
+
+
+def test_quant_linear_int8_keeps_its_path_and_counts_nothing():
+    from genpc_tpu_torch import tracing
+    g = torch.Generator().manual_seed(6)
+    m = tq.QuantLinear(32, 16, 8, compute=torch.bfloat16)
+    m.load_state_dict({"weight": torch.randint(-127, 128, (16, 32),
+                                               generator=g).to(torch.int8),
+                       "scale": torch.rand(16, generator=g) * 1e-3,
+                       "bias": torch.randn(16, generator=g)})
+    x = torch.randn(5, 32, generator=g).to(torch.bfloat16)
+    with tracing.recording() as rec, tracing.span("fwd"), torch.no_grad():
+        got = m(x)
+    want = torch.addcmul(m.bias, tq.matmul_f32(x, m.weight.to(torch.bfloat16)),
+                         m.scale).to(torch.bfloat16)
+    assert torch.equal(got, want)
+    assert not any(k.startswith("fwd:quant_w4") for k in rec.flat())
+
+
+@pytest.mark.parametrize("m,n,bm", [
+    (256, 3072, 64), (512, 3072, 192), (768, 3072, 192), (3072, 3072, 192),
+    (4608, 3072, 256), (256, 12288, 256), (768, 12288, 192),
+    (4608, 12288, 256), (512, 10240, 192), (1000, 1280, 64)])
+def test_k6_row_tile_follows_the_waves(m, n, bm):
+    """K6's tensor-core tile on a 132-SM card: 64 rows where 256 and 192
+    would leave half the SMs idle, else the one whose waves of blocks
+    cost less (the FLUX paint, generation and T5 classes)."""
+    assert tq.w4_row_tile(m, n, 132) == bm
+
+
+def test_int4_layer_needs_no_kernel_library_off_the_card(monkeypatch):
+    """Building and running an int4 layer on the CPU neither builds nor
+    loads the kernel library (no nvcc here); another device raises
+    rather than falling back."""
+    from genpc_tpu_torch import _kernels
+
+    def no_library(*a, **k):
+        raise AssertionError("the kernel library was asked for")
+    monkeypatch.setattr(_kernels, "lib", no_library)
+    monkeypatch.setattr(_kernels, "build", no_library)
+    monkeypatch.setattr(_kernels, "_nvcc", no_library)
+    m, x = _w4_layer(torch.bfloat16)
+    with torch.no_grad():
+        assert m(x).shape == (2, 3, 24)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tq.w4_linear(x.to("meta"), m.weight.to("meta"), m.scale.to("meta"),
+                     m.bias.to("meta"))
+
+
+
+def test_k6_counts_a_captured_launch_at_each_replay():
+    """A K6 launch a stream capture records counts (``launches`` and the
+    ``quant_w4`` counter) at each replay of the graph, not at the
+    capture; an uncaptured one counts once (bookkeeping only: no kernel
+    runs here)."""
+    from genpc_tpu_torch import _kernels, tracing
+    before = tq._w4_gemm.launches
+    with tracing.recording() as rec, tracing.span("step"):
+        with _kernels.Captured() as launches:
+            with _kernels.traced(tq._w4_gemm, (64, 128, 256)):
+                pass
+        assert tq._w4_gemm.launches == before
+        for _ in range(3):
+            launches.replayed()
+        with _kernels.traced(tq._w4_gemm, (64, 128, 256)):
+            pass
+    assert tq._w4_gemm.launches == before + 4
+    assert rec.flat()["step:quant_w4"] == 4
+
 # ------------------------------------------------ quantised models
 
 def _dit_case(bits, seed=1):
