@@ -69,7 +69,7 @@ from genpc_tpu_torch.pipeline.artifacts import (ObjectArtifacts,
                                                 input_artifacts)
 from genpc_tpu_torch.pipeline.depth_prompting import (
     DepthPrompting, make_inpainter, paint_depth)
-from genpc_tpu_torch.pipeline.registration import resample_fixed
+from genpc_tpu_torch.pipeline.registration import _apply, resample_fixed
 from genpc_tpu_torch.pipeline.scale_adapter import ScaleAdapter
 from genpc_tpu_torch.registration import icp as _icp
 from genpc_tpu_torch.registration.fusion import fuse_clouds_batched
@@ -197,10 +197,6 @@ _GT_DEVICE_CACHE: Dict[str, tuple] = {}
 
 
 # ----------------------------------------------------------------- runner
-
-def _apply(T, pts):
-    return (pts @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
-
 
 def _downsample_fixed(pts, n: int) -> np.ndarray:
     """voxel 0.03 then fixed-size resample (the ICP inputs)."""

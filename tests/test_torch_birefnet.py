@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, nchw, port, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu_torch.config as tconfig
 from genpc_tpu.models import birefnet as jb
@@ -36,14 +37,6 @@ SHIFTED = dict(embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 2, 2),
 #: the reference's parameter count of the full preset (jax.eval_shape;
 #: batch_stats included), held in test_full_spec_loads_strictly
 FULL_PARAMS = 201_026_555
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(name):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from torch_models_ref import TOL, close, nchw, precision, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.models import checkpoint_specs as specs
 from genpc_tpu.models import text_encoder as jte
@@ -33,14 +34,6 @@ from genpc_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COND_CH = (16, 32, 96, 256)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _zeros_tree(init):

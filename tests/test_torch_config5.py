@@ -24,6 +24,7 @@ import torch
 import torch_flux_ref as fr
 from torch_models_ref import precision, ref_params
 from torch_replay import REG_STEP_TOL, held, hold_coarse_sweep, native_off
+from torch_threads import one_torch_thread  # noqa: F401
 from torch_trellis_ref import ref_trellis_draws, trellis_backends
 
 import genpc_tpu.config as jconfig
@@ -49,14 +50,6 @@ TINY = dict(
     fine_scale_steps=2, metric_points=256)
 REG_STEPS = ("batched_pose_optim", "batched_coarse_sweep",
              "batched_fine_search", "batched_similarity_refine")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _convert(name):

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, nchw, port, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.models import checkpoint_specs as specs
 from genpc_tpu.models import dit as jdit
@@ -31,14 +32,6 @@ from genpc_tpu_torch.models.dit import DiTConfig, MMDiT
 #: above the reference's _ATTN_CHUNK_MIN_T (its chunked branch)
 CASES = {"tiny_qwen": ("tiny_qwen", 8, 12), "tiny": ("tiny", 8, 12),
          "tiny_qwen_chunked": ("tiny_qwen", 64, 40)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(cfg, hw, lt, seed=0):

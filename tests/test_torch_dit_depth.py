@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from torch_models_ref import precision, ref_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu_torch.config as tconfig
@@ -33,14 +34,6 @@ SIZE = 64
 #: packages, and true CFG 4.0 multiplies the gap between the branches
 #: over 8 steps; in fp32 only summation order is left)
 IMAGE_TOL = {"bf16": 0.08, "f32": 1e-4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -9,17 +9,10 @@ import numpy as np
 import pytest
 import torch
 import torch_flux_ref as fr
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu_torch.models.dit_depth import DiTDepthEdit
 from genpc_tpu_torch.tracing import recording
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16"])

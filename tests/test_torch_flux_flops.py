@@ -10,6 +10,7 @@ import pytest
 import torch
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.utils.flop_counter import FlopCounterMode
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu_torch.models import weights as tw
 from genpc_tpu_torch.models.dit import DiTConfig, MMDiT

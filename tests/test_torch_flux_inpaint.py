@@ -10,9 +10,9 @@ import importlib
 import jax
 import numpy as np
 import pytest
-import torch
 import torch_flux_ref as fr
 from torch_models_ref import precision
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu_torch.config as tconfig
@@ -21,14 +21,6 @@ from genpc_tpu.models.dit_depth import FluxInpainter as JInp
 from genpc_tpu_torch.io.synthetic_data import write_dataset
 from genpc_tpu_torch.models.dit_depth import DiTDepthEdit, FluxInpainter
 from genpc_tpu_torch.tracing import recording
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _hole_case(seed=5):

@@ -5,16 +5,8 @@ modes, both packages on the reference's quantize_tree of the same
 weights (torch_flux_ref.check_generate_batch)."""
 
 import pytest
-import torch
 import torch_flux_ref as fr
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16"])

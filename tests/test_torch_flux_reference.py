@@ -12,6 +12,7 @@ must miss the bf16 tolerance on the first-step velocity."""
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu_torch.models.dit_depth import DiTDepthEdit, FluxInpainter
 from genpc_tpu_torch.models.quant import QuantLinear, dequantize_array
@@ -35,14 +36,6 @@ SIZE = 64
 TOL = {"f32": {"velocity": 1e-5, "encode": 1e-5, "image": 1e-5},
        "bf16": {"velocity": 1e-2, "encode": 6e-2, "image": 1e-1}}
 MODES = ("f32", "bf16")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setting(mode, *modules):

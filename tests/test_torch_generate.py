@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from torch_models_ref import MODES, precision, ref_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu_torch.config as tconfig
@@ -34,14 +35,6 @@ SIZE, STEPS = 64, 2
 #: (observed 0.047 for the ControlNet, 0.042 for the adapter); in fp32
 #: only summation order is left
 IMAGE_TOL = {"bf16": 0.08, "f32": 1e-4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_draws(rng, steps, shape):

@@ -7,6 +7,7 @@ zero123plus cameras."""
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.io import glb as jglb
 from genpc_tpu.models.backends import prep_rgb as jprep_rgb

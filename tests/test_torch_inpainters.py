@@ -19,6 +19,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, nchw, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu_torch.config as tconfig
@@ -53,14 +54,6 @@ def kept(img):
     """A known pixel as both packages return it: mapped to [-1, 1] and
     back in fp32."""
     return np.clip((img * 2 - 1) / 2 + 0.5, 0, 1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _hole_case(seed=5, size=SIZE, chw_mask=False):

@@ -19,6 +19,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, nchw, port, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu.native
@@ -47,14 +48,6 @@ FLAGS = ["01184", "05117"]
 #: 0.0094); in fp32 only summation order is left (observed: max 1.4e-5)
 VIEW_TOL = {"bf16": 0.12, "f32": 1e-4}
 VIEW_MEAN_TOL = {"bf16": 0.015, "f32": 1e-5}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -9,6 +9,7 @@ without the suite's conftest:
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu_torch import tracing
 from genpc_tpu_torch.models.quant import (W4_ROW_TILES, _scale_bias,

@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu.native
@@ -37,16 +38,6 @@ REG_STEPS = {
     "batched_fine_search": lambda out: tuple(np.asarray(o) for o in out),
     "batched_similarity_refine": lambda out: torch.tensor(np.asarray(out)),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes
-    that share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(pkg, cfg, root, category, tapes, **kw):

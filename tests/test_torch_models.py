@@ -20,6 +20,7 @@ import pytest
 import torch
 from torch_models_ref import (MODES, TOL, close, nchw, port, precision,
                               ref_params, run_jit)
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.models import layers as jl
 from genpc_tpu.models import schedulers as js
@@ -41,16 +42,6 @@ from genpc_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
 COND_CH = (16, 32, 96, 256)
 K = jax.random.PRNGKey(0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the inputs are small, and the suite runs in
-    several worker processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

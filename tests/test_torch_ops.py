@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.ops import chamfer as jchamfer
 from genpc_tpu.ops.emd import _bid_phase

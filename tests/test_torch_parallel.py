@@ -13,6 +13,7 @@ import pytest
 import torch
 from torch_models_ref import close, port, precision
 from torch_replay import native_off
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.native
 from genpc_tpu.config import load_config as jload
@@ -26,14 +27,6 @@ from genpc_tpu_torch.parallel import mesh as tmesh
 
 jbr = importlib.import_module("genpc_tpu.parallel.batched_runner")
 tbr = importlib.import_module("genpc_tpu_torch.parallel.batched_runner")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cpus(n):

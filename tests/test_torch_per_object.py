@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu.native
@@ -36,16 +37,6 @@ TINY = dict(
     icp_points=512, fine_scale_steps=3, glb_sample_points=4096,
     fused_points=1500, metric_points=1024, control_model="synthetic",
     rembg_model="synthetic", generative_model="synthetic", inpainter="jax")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes
-    that share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -1,14 +1,17 @@
 """Parity of the port's pipeline (config, generation backends, fusion,
 metric, run_batched end to end) with the JAX reference on the CPU."""
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu_torch.config as tconfig
@@ -282,3 +285,23 @@ def test_import_leaves_jax_out():
     env["PYTHONPATH"] = REPO
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env, timeout=120)
+
+
+def test_every_port_test_file_pins_one_thread():
+    # the thread pin is written once (tests/torch_threads.py); every port
+    # test file imports it and none sets the thread count itself
+    files = sorted(Path(REPO, "tests").glob("test_torch_*.py"))
+    assert files
+    unpinned, own = [], []
+    for f in files:
+        tree = ast.parse(f.read_text())
+        if not any(isinstance(n, ast.ImportFrom)
+                   and n.module == "torch_threads"
+                   and any(a.name == "one_torch_thread" for a in n.names)
+                   for n in tree.body):
+            unpinned.append(f.name)
+        if any(isinstance(n, ast.Attribute) and n.attr == "set_num_threads"
+               for n in ast.walk(tree)):
+            own.append(f.name)
+    assert not unpinned, f"no torch_threads.one_torch_thread: {unpinned}"
+    assert not own, f"sets torch's thread count itself: {own}"

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, nchw, port, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.models import checkpoint_specs as specs
 from genpc_tpu.models import quant as jq
@@ -32,14 +33,6 @@ from genpc_tpu_torch.models import weights as tw
 from genpc_tpu_torch.models.dit import DiTConfig, MMDiT
 
 BITS = (8, 4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a) -> torch.Tensor:

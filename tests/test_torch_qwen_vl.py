@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, port, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.models import checkpoint_specs as specs
 from genpc_tpu.models import qwen_vl as jqv
@@ -25,14 +26,6 @@ from genpc_tpu_torch.models import weights as tw
 
 L = 24
 GRID = 8       # 8x8 patches of the tiny preset: 2x2 windows of 4x4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _text_inputs(cfg):

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.native
 from genpc_tpu.geometry import normalize as jnorm
@@ -35,16 +36,6 @@ jpose = importlib.import_module("genpc_tpu.registration.pose_optim")
 
 KEYS = ("rot6d", "trans", "log_scale")
 GROUPS = {"rot6d": "rot", "trans": "trans", "log_scale": "scale"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these inputs are small, and the suite runs in
-    several worker processes that share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.render import point_renderer as jpr
 from genpc_tpu.render import splat_kernel as jsk
@@ -15,16 +16,6 @@ from genpc_tpu_torch.render import point_renderer as tpr
 from genpc_tpu_torch.render import splat_kernel as tsk
 
 F, SLOTS, GAMMA = 2, 6, 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these inputs are small, and the suite runs in
-    several worker processes that share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

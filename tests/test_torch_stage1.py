@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.geometry import cameras as jcam
 from genpc_tpu.ops import hpr as jhpr

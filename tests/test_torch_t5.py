@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, port, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.models import checkpoint_specs as specs
 from genpc_tpu.models import t5 as jt5
@@ -26,14 +27,6 @@ from genpc_tpu_torch.models import weights as tw
 PROMPTS = ["complete the depth map. ",
            "A raw photo of a chair. no reflections, high quality, rich "
            "details. Shot with a macro lens (f/2.8, 50mm) and a Canon EOSR5"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("qlen,buckets,dist", [(16, 32, 128), (512, 32, 128),

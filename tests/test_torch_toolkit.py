@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu.geometry import densify as jdensify
 from genpc_tpu.geometry import mesh_utils as jmu
@@ -31,14 +32,6 @@ from genpc_tpu_torch.metrics import losses as tlosses
 from genpc_tpu_torch.models import segmentation as tseg
 from genpc_tpu_torch.render import image_ops as tops
 from genpc_tpu_torch.render import point_renderer as tpr
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

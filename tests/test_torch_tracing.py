@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from genpc_tpu_torch import tracing
 from genpc_tpu_torch.config import load_config

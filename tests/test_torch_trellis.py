@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch_models_ref import MODES, TOL, close, nchw, precision, \
     ref_params, run_jit
+from torch_threads import one_torch_thread  # noqa: F401
 
 import genpc_tpu.config as jconfig
 import genpc_tpu_torch.config as tconfig
@@ -41,14 +42,6 @@ SDF_TOL = {"bf16": 0.08, "f32": 1e-4}
 TRELLIS_PARAMS = {"encoder": 18_105_216, "struct": 146_536_705,
                   "slat": 168_568_328, "decoder": 72_463_939}
 SF3D_PARAMS = 378_826_062
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")
